@@ -1,0 +1,35 @@
+"""Hand-written Hopper kernels for the technique's hot data-movement paths.
+
+dispatch     — routing-plan gather (the redistribution data movement)
+histogram    — destination load counts (skew-model input, every step)
+topk_gating  — fused softmax + top-k routing
+
+Each kernel ships kernel.py (the CUDA launch wrapper, which counts its
+launches), ref.py (the plain PyTorch version) and ops.py (CUDA tensor →
+kernel or raise; CPU tensor → plain version).  The CUDA C++ sources live in
+csrc/ and are built for sm_90a at first use by ``_loader``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels.dispatch import kernel as _dispatch
+from repro_torch.kernels.histogram import kernel as _histogram
+from repro_torch.kernels.topk_gating import kernel as _topk_gating
+
+_MODULES = {
+    "topk_gating": _topk_gating,
+    "load_histogram": _histogram,
+    "dispatch_gather": _dispatch,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches made by each wrapper since the last reset."""
+    return {name: mod.launches for name, mod in _MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _MODULES.values():
+        mod.launches = 0

@@ -1,0 +1,325 @@
+"""Unified decoder-only transformer: attention mixers with MoE or dense
+ffn layers (the Mamba-2 mixer of the ssm / hybrid families is not ported
+yet, see ROADMAP.md).
+
+Layers are grouped into *blocks* of ``period`` layers (period = lcm of the
+attention interleave and the MoE every-other layout) and every parameter
+leaf is stacked over the blocks on a leading axis, the layout ``repro``
+scans over.  Here the block stack is a Python loop over that leading axis,
+so carrying weights across from ``repro`` is one copy per leaf.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.config.base import ArchConfig
+from repro_torch.models.layers import basic
+from repro_torch.models.layers.attention import (
+    attention_apply,
+    attention_specs,
+    mlp_apply,
+    mlp_specs,
+)
+from repro_torch.models.layers.moe import (
+    SpmdCtx,
+    moe_apply,
+    moe_specs,
+    moe_state_init,
+)
+from repro_torch.models.param import ParamSpec, spec, tree_map
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+_MAMBA_TODO = (
+    "the Mamba-2 mixer is not ported yet: ROADMAP.md queue A, 'Mamba-2 and "
+    "the other model families', with the ssd_state_scan kernel of queue B"
+)
+
+
+def model_dtype(cfg: ArchConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def block_period(cfg: ArchConfig) -> int:
+    period = cfg.attn_period
+    if cfg.moe is not None and cfg.moe.layout == "every_other":
+        period = int(math.lcm(period, 2))
+    return period
+
+
+def num_blocks(cfg: ArchConfig) -> int:
+    period = block_period(cfg)
+    assert cfg.num_layers % period == 0, (cfg.num_layers, period)
+    return cfg.num_layers // period
+
+
+# ------------------------------------------------------------------ #
+# Parameter specs
+# ------------------------------------------------------------------ #
+
+
+def layer_specs(cfg: ArchConfig, layer_idx: int) -> Dict:
+    """Specs for one layer (mixer + ffn + norms)."""
+    out: Dict[str, Any] = {
+        "norm1": basic.norm_specs(cfg.d_model, cfg.norm),
+        "norm2": basic.norm_specs(cfg.d_model, cfg.norm),
+    }
+    if cfg.is_attention_layer(layer_idx) and cfg.num_heads > 0:
+        out["attn"] = attention_specs(cfg)
+    else:
+        raise NotImplementedError(_MAMBA_TODO)
+    if cfg.is_moe_layer(layer_idx):
+        out["moe"] = moe_specs(cfg)
+    elif cfg.d_ff > 0:
+        out["ffn"] = mlp_specs(cfg)
+    else:
+        out.pop("norm2")
+    return out
+
+
+def _stack_specs(tree: Any, n: int) -> Any:
+    def f(p: ParamSpec) -> ParamSpec:
+        return ParamSpec((n,) + p.shape, (None,) + p.axes, p.init, p.scale, p.dtype)
+    return tree_map(f, tree)
+
+
+def model_specs(cfg: ArchConfig) -> Dict:
+    period = block_period(cfg)
+    nb = num_blocks(cfg)
+    block = {f"l{j}": layer_specs(cfg, j) for j in range(period)}
+    out = {
+        "embed": basic.embedding_specs(cfg.padded_vocab, cfg.d_model),
+        "blocks": _stack_specs(block, nb),
+        "final_norm": basic.norm_specs(cfg.d_model, cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = {
+            "table": spec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
+                          scale=0.02)
+        }
+    return out
+
+
+# ------------------------------------------------------------------ #
+# Runtime state (DySkew MoE links, KV caches)
+# ------------------------------------------------------------------ #
+
+
+def moe_layer_positions(cfg: ArchConfig) -> Tuple[int, ...]:
+    period = block_period(cfg)
+    return tuple(j for j in range(period) if cfg.is_moe_layer(j))
+
+
+def attn_layer_positions(cfg: ArchConfig) -> Tuple[int, ...]:
+    period = block_period(cfg)
+    return tuple(
+        j for j in range(period)
+        if cfg.is_attention_layer(j) and cfg.num_heads > 0
+    )
+
+
+def mamba_layer_positions(cfg: ArchConfig) -> Tuple[int, ...]:
+    period = block_period(cfg)
+    return tuple(
+        j for j in range(period)
+        if not (cfg.is_attention_layer(j) and cfg.num_heads > 0)
+    )
+
+
+def dyskew_states_init(cfg: ArchConfig, ctx: SpmdCtx, device: DeviceLike = None) -> Dict:
+    """Stacked per-block DySkew link state for every MoE position."""
+    nb = num_blocks(cfg)
+    out = {}
+    for j in moe_layer_positions(cfg):
+        one = moe_state_init(cfg, ctx, device)
+        out[f"l{j}"] = tree_map(
+            lambda a: a.expand((nb,) + tuple(a.shape)).clone(), one
+        )
+    return out
+
+
+def decode_state_init(
+    cfg: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype,
+    device: DeviceLike = None,
+) -> Dict:
+    """KV caches + position counter for decode."""
+    dev = resolve_device(device)
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(
+            "the int8 KV cache is not ported yet: ROADMAP.md queue A, "
+            "'the other model families (int8 KV cache, encdec, VLM prefix)'"
+        )
+    if mamba_layer_positions(cfg):
+        raise NotImplementedError(_MAMBA_TODO)
+    nb = num_blocks(cfg)
+    K, hd = cfg.num_kv_heads, cfg.head_dim_
+    out: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    for j in attn_layer_positions(cfg):
+        out[f"kv_l{j}"] = {
+            "k": torch.zeros((nb, batch, max_seq, K, hd), dtype=dtype, device=dev),
+            "v": torch.zeros((nb, batch, max_seq, K, hd), dtype=dtype, device=dev),
+        }
+    return out
+
+
+# ------------------------------------------------------------------ #
+# Forward pass
+# ------------------------------------------------------------------ #
+
+
+def _apply_layer(
+    lp: Dict,
+    x: torch.Tensor,
+    j: int,
+    *,
+    cfg: ArchConfig,
+    ctx: SpmdCtx,
+    positions: torch.Tensor,
+    cache: Optional[Dict],
+    cache_index: Optional[int],
+    moe_state: Optional[Dict],
+    metrics: Dict,
+):
+    """One layer: pre-norm mixer + pre-norm ffn with residuals."""
+    new_cache = None
+    new_moe_state = None
+    h = basic.norm_apply(lp["norm1"], x, cfg.norm)
+    if "attn" in lp:
+        attn_out, new_cache = attention_apply(
+            lp["attn"], h, cfg=cfg, positions=positions,
+            cache=cache, cache_index=cache_index,
+        )
+        x = x + attn_out
+    else:
+        raise NotImplementedError(_MAMBA_TODO)
+
+    if "moe" in lp:
+        h = basic.norm_apply(lp["norm2"], x, cfg.norm)
+        # Stateless callers (e.g. serving without carried DySkew state) get
+        # a fresh INIT-state link on every call: under the eager policy it
+        # is distributing on its first tick, so the adaptive capacities are
+        # live in serving too.
+        stateless = moe_state is None
+        ms = moe_state_init(cfg, ctx, x.device) if stateless else moe_state
+        moe_out, new_moe_state, moe_metrics = moe_apply(
+            lp["moe"], h, cfg=cfg, state=ms, ctx=ctx
+        )
+        if stateless:
+            new_moe_state = None
+        for k, v in moe_metrics.items():
+            metrics[k] = metrics.get(k, 0.0) + v
+        x = x + moe_out
+    elif "ffn" in lp:
+        h = basic.norm_apply(lp["norm2"], x, cfg.norm)
+        x = x + mlp_apply(lp["ffn"], h, cfg)
+    return x, new_cache, new_moe_state
+
+
+def _take_block(tree: Any, b: int) -> Any:
+    """Views of block ``b`` of every stacked leaf (no copy)."""
+    return tree_map(lambda a: a[b], tree)
+
+
+def _stack_blocks(trees: List[Any]) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack_blocks([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees, dim=0)
+
+
+def forward(
+    params: Dict,
+    tokens: torch.Tensor,            # (B, S) integer
+    *,
+    cfg: ArchConfig,
+    ctx: SpmdCtx = SpmdCtx(),
+    dyskew: Optional[Dict] = None,   # stacked MoE link states
+    decode_state: Optional[Dict] = None,
+    prefix_embeds: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict]:
+    """Returns (logits (B,S,V), aux) where aux carries new dyskew states,
+    new decode state, and scalar metrics.
+
+    MUTATES ``decode_state``: the KV caches are updated in place and the
+    returned decode state holds the same cache tensors (with a new ``pos``).
+    ``dyskew`` is not mutated; the new link states are fresh tensors.
+    """
+    if prefix_embeds is not None:
+        raise NotImplementedError(
+            "prefix embeddings are not ported yet: ROADMAP.md queue A, "
+            "'the other model families (int8 KV cache, encdec, VLM prefix)'"
+        )
+    B, S = tokens.shape
+    dtype = model_dtype(cfg)
+    dev = tokens.device
+
+    x = basic.embed_apply(params["embed"], tokens, dtype)
+
+    if decode_state is not None:
+        if S > 1:
+            # Prefill is always from position 0 (single-shot prompt
+            # ingestion).
+            start = 0
+        else:
+            # One host read of the position counter per decode step: the
+            # cache write below needs it as a Python slice bound.
+            start = int(decode_state["pos"])
+        cache_index: Optional[int] = start
+        positions = start + torch.arange(S, dtype=torch.int32, device=dev)
+    else:
+        positions = torch.arange(S, dtype=torch.int32, device=dev)
+        cache_index = None
+
+    period = block_period(cfg)
+    nb = num_blocks(cfg)
+    attn_pos = attn_layer_positions(cfg)
+    moe_pos = moe_layer_positions(cfg)
+
+    block_metrics: List[Dict[str, torch.Tensor]] = []
+    block_moe: List[Dict[str, Any]] = []
+    for b in range(nb):
+        bp = _take_block(params["blocks"], b)
+        metrics: Dict[str, torch.Tensor] = {}
+        out_moe = {}
+        for j in range(period):
+            cache_j = None
+            if decode_state is not None and j in attn_pos:
+                cache_j = _take_block(decode_state[f"kv_l{j}"], b)
+            moe_state_j = None
+            if dyskew is not None and j in moe_pos:
+                moe_state_j = _take_block(dyskew[f"l{j}"], b)
+            x, _, new_moe = _apply_layer(
+                bp[f"l{j}"], x, j, cfg=cfg, ctx=ctx, positions=positions,
+                cache=cache_j, cache_index=cache_index,
+                moe_state=moe_state_j, metrics=metrics,
+            )
+            if new_moe is not None:
+                out_moe[f"l{j}"] = new_moe
+        block_metrics.append(metrics)
+        block_moe.append(out_moe)
+
+    x = basic.norm_apply(params["final_norm"], x, cfg.norm)
+    head = params.get("lm_head", params["embed"])
+    logits = basic.logits_apply(head, x, cfg.vocab_size)
+
+    aux: Dict[str, Any] = {
+        "metrics": {
+            k: torch.stack([m[k] for m in block_metrics]).mean()
+            for k in block_metrics[0]
+        } if block_metrics and block_metrics[0] else {},
+    }
+    if dyskew is not None:
+        aux["dyskew"] = _stack_blocks(block_moe)
+    if decode_state is not None:
+        new_state = dict(decode_state)
+        new_state["pos"] = decode_state["pos"] + S
+        aux["decode_state"] = new_state
+    return logits, aux

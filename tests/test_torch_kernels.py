@@ -1,0 +1,247 @@
+"""The plain PyTorch versions of the port's three kernels against the
+Pallas kernels of ``repro`` (interpret mode, as ``tests/test_kernels.py``
+runs them) and against the jnp oracles, at that file's shapes, on inputs
+made with numpy and fed to both sides.
+
+The CUDA kernels themselves cannot run without a GPU: they are built and
+held against these same plain versions on the card by ``chip_smoke.py``.
+What runs here is everything around them: the plain versions, the ``ops``
+switch, the wrappers' argument checks and the launch counters.
+
+Tolerances: top-k indices EQUAL and weights rtol 1e-5 / atol 1e-6 (those of
+``tests/test_kernels.py``: float32 softmax sums differ in order);
+histogram EQUAL (integer counts); dispatch EQUAL by value (pure data
+movement) in float32 and bfloat16.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.dispatch.kernel import dispatch_gather as j_dispatch_kernel
+from repro.kernels.dispatch.ref import dispatch_gather_ref as j_dispatch_ref
+from repro.kernels.histogram.kernel import load_histogram as j_hist_kernel
+from repro.kernels.histogram.ref import load_histogram_ref as j_hist_ref
+from repro.kernels.topk_gating.kernel import topk_gating as j_gating_kernel
+from repro.kernels.topk_gating.ref import topk_gating_ref as j_gating_ref
+from repro_torch import kernels as tk
+from repro_torch.kernels.dispatch import kernel as t_dispatch_kernel
+from repro_torch.kernels.dispatch import ops as t_dispatch_ops
+from repro_torch.kernels.dispatch.ref import dispatch_gather_ref as t_dispatch_ref
+from repro_torch.kernels.histogram import kernel as t_hist_kernel
+from repro_torch.kernels.histogram import ops as t_hist_ops
+from repro_torch.kernels.histogram.ref import load_histogram_ref as t_hist_ref
+from repro_torch.kernels.topk_gating import kernel as t_gating_kernel
+from repro_torch.kernels.topk_gating import ops as t_gating_ops
+from repro_torch.kernels.topk_gating.ref import topk_gating_ref as t_gating_ref
+
+
+def _to_torch(a: np.ndarray, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def _f32(t: torch.Tensor) -> np.ndarray:
+    return t.to(torch.float32).numpy()
+
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class TestDispatchPlain:
+    @pytest.mark.parametrize("T,S,D", [(64, 128, 128), (256, 512, 256),
+                                       (128, 64, 512), (32, 32, 128)])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_pallas_and_oracle(self, T, S, D, dtype):
+        rng = np.random.default_rng(T + S + D)
+        x = rng.standard_normal((T, D)).astype(np.float32)
+        src = rng.integers(0, T, S).astype(np.int32)
+        valid = rng.random(S) < 0.8
+        jx = jnp.asarray(x).astype(JDT[dtype])
+        pallas = j_dispatch_kernel(jx, jnp.asarray(src), jnp.asarray(valid),
+                                   block_s=32, block_d=128, interpret=True)
+        oracle = j_dispatch_ref(jx, jnp.asarray(src), jnp.asarray(valid))
+        out = t_dispatch_ops.dispatch(
+            _to_torch(x, TDT[dtype]), _to_torch(src), _to_torch(valid)
+        )
+        assert out.dtype == TDT[dtype] and out.shape == (S, D)
+        np.testing.assert_array_equal(_f32(out), np.asarray(pallas, np.float32))
+        np.testing.assert_array_equal(_f32(out), np.asarray(oracle, np.float32))
+
+    def test_all_invalid_is_zero(self):
+        out = t_dispatch_ref(torch.ones(16, 128), torch.zeros(32, dtype=torch.int32),
+                             torch.zeros(32, dtype=torch.bool))
+        assert float(out.abs().max()) == 0.0
+
+    @pytest.mark.parametrize("valid_dtype", [torch.bool, torch.int32, torch.float32])
+    def test_valid_of_any_type(self, valid_dtype):
+        rng = np.random.default_rng(0)
+        x = _to_torch(rng.standard_normal((8, 16)).astype(np.float32))
+        src = _to_torch(rng.integers(0, 8, 12).astype(np.int32))
+        valid = _to_torch(rng.random(12) < 0.5)
+        want = t_dispatch_ref(x, src, valid)
+        assert torch.equal(t_dispatch_ref(x, src, valid.to(valid_dtype)), want)
+
+    def test_reproduces_moe_buffer(self):
+        """The buffer ``repro``'s MoE layer builds with take_along_axis."""
+        T, D, E, C = 64, 128, 8, 16
+        rng = np.random.default_rng(3)
+        x = rng.standard_normal((T, D)).astype(np.float32)
+        src = rng.integers(0, T, E * C).astype(np.int32)
+        valid = rng.random(E * C) < 0.7
+        jx = jnp.asarray(x)
+        jbuf = jnp.take_along_axis(jx[None], jnp.asarray(src)[None, :, None], axis=1)[0]
+        jbuf = jbuf * jnp.asarray(valid)[:, None]
+        out = t_dispatch_ops.dispatch(_to_torch(x), _to_torch(src), _to_torch(valid))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(jbuf))
+
+
+class TestHistogramPlain:
+    @pytest.mark.parametrize("N,E", [(256, 8), (1024, 64), (2048, 384),
+                                     (4096, 32)])
+    def test_matches_pallas_and_oracle(self, N, E):
+        ids = np.random.default_rng(N + E).integers(0, E, N).astype(np.int32)
+        pallas = j_hist_kernel(jnp.asarray(ids), num_dest=E, block_n=256, interpret=True)
+        oracle = j_hist_ref(jnp.asarray(ids), E)
+        out = t_hist_ops.histogram(_to_torch(ids), E)
+        assert out.dtype == torch.float32 and out.shape == (E,)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(pallas))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(oracle))
+        assert float(out.sum()) == N
+
+    def test_skewed_distribution(self):
+        ids = torch.cat([torch.zeros(900, dtype=torch.int32),
+                         torch.ones(124, dtype=torch.int32)])
+        out = t_hist_ref(ids, 16)
+        assert float(out[0]) == 900 and float(out[1]) == 124
+
+    def test_ids_out_of_range_count_nowhere(self):
+        """As the Pallas kernel's one-hot compare ignores them."""
+        ids = np.array([0, 3, -1, 4, 7, 3, 100], np.int32)
+        pallas = j_hist_kernel(jnp.asarray(ids), num_dest=4, block_n=7, interpret=True)
+        out = t_hist_ref(_to_torch(ids), 4)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(pallas))
+        np.testing.assert_array_equal(out.numpy(), [1, 0, 0, 2])
+
+    @pytest.mark.parametrize("N", [1, 7, 1000])
+    def test_sizes_that_divide_nothing(self, N):
+        ids = np.random.default_rng(N).integers(0, 5, N).astype(np.int32)
+        np.testing.assert_array_equal(
+            t_hist_ref(_to_torch(ids), 5).numpy(), np.bincount(ids, minlength=5)
+        )
+
+
+class TestTopkGatingPlain:
+    @pytest.mark.parametrize("T,E,k", [(128, 8, 2), (256, 64, 4),
+                                       (512, 384, 8), (64, 16, 1)])
+    def test_matches_pallas_and_oracle(self, T, E, k):
+        logits = np.random.default_rng(T + E + k).standard_normal((T, E)).astype(np.float32)
+        pw, pidx = j_gating_kernel(jnp.asarray(logits), k=k, block_t=64, interpret=True)
+        ow, oidx = j_gating_ref(jnp.asarray(logits), k)
+        w, idx = t_gating_ops.gating(_to_torch(logits), k)
+        assert w.dtype == torch.float32 and idx.dtype == torch.int32
+        assert w.shape == idx.shape == (T, k)
+        for rw, ridx in ((pw, pidx), (ow, oidx)):
+            np.testing.assert_array_equal(idx.numpy(), np.asarray(ridx))
+            np.testing.assert_allclose(w.numpy(), np.asarray(rw), rtol=1e-5, atol=1e-6)
+
+    def test_bfloat16_logits(self):
+        logits = np.random.default_rng(5).standard_normal((96, 32)).astype(np.float32)
+        jl = jnp.asarray(logits).astype(jnp.bfloat16)
+        ow, oidx = j_gating_ref(jl, 8)
+        w, idx = t_gating_ref(_to_torch(logits, torch.bfloat16), 8)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(oidx))
+        np.testing.assert_allclose(w.numpy(), np.asarray(ow), rtol=1e-5, atol=1e-6)
+
+    def test_ties_go_to_the_lower_index(self):
+        """``jax.lax.top_k`` and the Pallas argmax both send a tie to the
+        lower index; ``torch.topk`` promises nothing, so the plain version
+        sorts stably."""
+        logits = np.zeros((4, 16), np.float32)
+        logits[1, [3, 9, 12]] = 2.0          # three-way tie at the top
+        logits[2, :] = np.repeat(np.arange(8, dtype=np.float32), 2)  # pairs
+        logits[3, 15] = 1.0
+        pw, pidx = j_gating_kernel(jnp.asarray(logits), k=4, block_t=4, interpret=True)
+        _, oidx = j_gating_ref(jnp.asarray(logits), 4)
+        w, idx = t_gating_ref(_to_torch(logits), 4)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(pidx))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(oidx))
+        np.testing.assert_array_equal(idx[0].numpy(), [0, 1, 2, 3])
+        np.testing.assert_array_equal(idx[1].numpy(), [3, 9, 12, 0])
+        np.testing.assert_array_equal(idx[2].numpy(), [14, 15, 12, 13])
+        np.testing.assert_allclose(w.numpy(), np.asarray(pw), rtol=1e-5, atol=1e-6)
+
+    def test_weights_normalized(self):
+        logits = _to_torch(np.random.default_rng(0).standard_normal((128, 32)).astype(np.float32))
+        w, _ = t_gating_ref(logits, 4)
+        np.testing.assert_allclose(w.sum(-1).numpy(), 1.0, rtol=1e-5)
+
+    def test_rows_need_not_fill_a_block(self):
+        """The Pallas kernel asserts T % block_t == 0; the port has no
+        such restriction."""
+        logits = np.random.default_rng(1).standard_normal((37, 24)).astype(np.float32)
+        _, oidx = j_gating_ref(jnp.asarray(logits), 3)
+        _, idx = t_gating_ref(_to_torch(logits), 3)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(oidx))
+
+
+class TestWrappers:
+    """CPU tensors take the plain version; the launch wrappers take only
+    GPU tensors and raise on anything else; nothing counts as a launch."""
+
+    def test_cpu_tensors_never_count_as_launches(self):
+        tk.reset_launch_counts()
+        t_gating_ops.gating(torch.zeros(4, 8), 2)
+        t_hist_ops.histogram(torch.zeros(4, dtype=torch.int32), 8)
+        t_dispatch_ops.dispatch(torch.zeros(4, 8), torch.zeros(2, dtype=torch.int32),
+                                torch.ones(2, dtype=torch.bool))
+        assert tk.launch_counts() == {
+            "topk_gating": 0, "load_histogram": 0, "dispatch_gather": 0,
+        }
+
+    def test_reset_launch_counts(self):
+        t_gating_kernel.launches = 5
+        assert tk.launch_counts()["topk_gating"] == 5
+        tk.reset_launch_counts()
+        assert tk.launch_counts()["topk_gating"] == 0
+
+    def test_gating_kernel_refuses_cpu_tensors(self):
+        with pytest.raises(ValueError, match="GPU"):
+            t_gating_kernel.topk_gating(torch.zeros(4, 8), k=2)
+
+    def test_histogram_kernel_refuses_cpu_tensors(self):
+        with pytest.raises(ValueError, match="GPU"):
+            t_hist_kernel.load_histogram(torch.zeros(4, dtype=torch.int32), num_dest=8)
+
+    def test_dispatch_kernel_refuses_cpu_tensors(self):
+        with pytest.raises(ValueError, match="GPU"):
+            t_dispatch_kernel.dispatch_gather(
+                torch.zeros(4, 8), torch.zeros(2, dtype=torch.int32),
+                torch.ones(2, dtype=torch.bool),
+            )
+
+    def test_loader_is_not_imported_with_the_package(self):
+        """Importing the kernels must not build or load anything: the
+        loader is imported inside the launch wrappers."""
+        import os
+        import pathlib
+        import subprocess
+        import sys
+        src = pathlib.Path(__file__).resolve().parents[1] / "src"
+        code = (
+            "import sys, repro_torch.kernels, repro_torch.models.layers.moe;"
+            "assert 'repro_torch.kernels._loader' not in sys.modules"
+        )
+        subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(src)))
+
+    def test_sources_exist_for_every_kernel(self):
+        from repro_torch.kernels import _loader
+        assert [p.name for p in _loader.sources()] == [
+            "dispatch.cu", "histogram.cu", "topk_gating.cu",
+        ]
+        for path in _loader.sources():
+            text = path.read_text()
+            assert 'extern "C" int dyskew_' in text and "<<<" in text
