@@ -5,10 +5,13 @@
 
 builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with ``nvcc``,
 holds each against its plain PyTorch version on the card, runs the DySkew
-MoE dispatch through the kernels and through the plain versions side by
-side, and then serves ``granite-moe-1b-a400m`` at full width and depth
-(random weights from a seed): one prefill of 8 prompts of 1024 tokens and 32
-greedy decode steps through ``make_prefill_step`` / ``make_decode_step``.
+MoE dispatch and one full-width Mamba-2 layer through the kernels and
+through the plain versions side by side, and then serves two models at full
+width and depth (random weights from a seed), each with one prefill of 8
+prompts of 1024 tokens and 32 greedy decode steps through
+``make_prefill_step`` / ``make_decode_step``: ``granite-moe-1b-a400m``,
+whose 24 MoE layers run the three dispatch kernels, and ``mamba2-1.3b``,
+whose 48 Mamba-2 layers run the state-scan kernel in every prefill.
 
 Standard output is one JSON object per line:
 
@@ -16,7 +19,8 @@ Standard output is one JSON object per line:
     {"phase": "build", ...}      seconds to build the kernel library
     {"phase": "kernel_checks"}   every kernel against its plain version
     {"phase": "moe", ...}        moe_apply, kernel path against plain path
-    {"phase": "serve", ...}      the full model: rates, memory, launches
+    {"phase": "mamba", ...}      one Mamba-2 layer, kernel scan against plain
+    {"phase": "serve", ...}      per model: rates, memory, launches
     {"phase": "profile", ...}    only with --profile: device time by kernel
     {"kernels": [...]}           per kernel: time, bound, launches, error
     <name>, <power limit>        as nvidia-smi prints them
@@ -50,7 +54,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, outside the tensor cores
 
-ARCH = "granite-moe-1b-a400m"
+MOE_ARCH = "granite-moe-1b-a400m"
+SSM_ARCH = "mamba2-1.3b"
 PREFILL_BATCH, PREFILL_LEN, DECODE_STEPS = 8, 1024, 32
 EP_SHARDS = 8
 
@@ -58,11 +63,13 @@ REPLACES = {
     "topk_gating": "src/repro/kernels/topk_gating/kernel.py:51",
     "load_histogram": "src/repro/kernels/histogram/kernel.py:38",
     "dispatch_gather": "src/repro/kernels/dispatch/kernel.py:49",
+    "ssd_state_scan": "src/repro/kernels/ssd_scan/kernel.py:43",
 }
 SOURCES = {
     "topk_gating": "src/repro_torch/kernels/csrc/topk_gating.cu",
     "load_histogram": "src/repro_torch/kernels/csrc/histogram.cu",
     "dispatch_gather": "src/repro_torch/kernels/csrc/dispatch.cu",
+    "ssd_state_scan": "src/repro_torch/kernels/csrc/ssd_state_scan.cu",
 }
 
 
@@ -252,6 +259,76 @@ def dispatch_case(torch, name, x, src, valid, timed):
     return out
 
 
+def ssd_case(torch, name, states, decay, timed):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_state_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_state_scan_ref
+
+    out_k = ssd_state_scan(states, decay)
+    torch.cuda.synchronize()
+    out_r = ssd_state_scan_ref(states, decay)
+    check(out_k.dtype == torch.float32 and out_k.shape == states.shape, f"{name}: type or shape")
+    # Bit for bit: the kernel rounds the multiply and the add one by one,
+    # as the plain version's two tensor operations do.
+    check(torch.equal(out_k, out_r), f"{name}: prefix differs from the plain version")
+    check(bool((out_k[0] == 0).all()), f"{name}: the first prefix must be zero")
+    C, H, P, N = states.shape
+    out = {
+        "kernel": "ssd_state_scan", "case": name, "shape": [C, H, P, N],
+        "dtype": str(states.dtype).replace("torch.", ""),
+        "max_abs_err": float((out_k - out_r).abs().max()) if out_k.numel() else 0.0,
+    }
+    if timed:
+        # The prefix is exclusive: states[C-1] and decay[C-1] reach no
+        # output, so C-1 planes and their decays are read and C planes
+        # written, with a multiply and an add per element read.
+        plane = H * P * N
+        live = C - 1
+        nbytes = live * plane * states.element_size() + live * H * 4 + C * plane * 4
+        b_ms, by = bound(nbytes, 2 * live * plane)
+        out.update(
+            kernel_ms=time_ms(torch, lambda: ssd_state_scan(states, decay)),
+            host_ms=host_ms(torch, lambda: ssd_state_scan(states, decay)),
+            plain_ms=time_ms(torch, lambda: ssd_state_scan_ref(states, decay)),
+            library_ms=None,   # no single PyTorch call computes this prefix
+            bytes=nbytes, bound_ms=b_ms, bound_by=by,
+        )
+    del out_k, out_r
+    return out
+
+
+def served_scan_inputs(torch, gen):
+    """The scan's input at the served shape, as the layer builds it: one
+    ``ssd_chunked`` of a 8 x 1024 bfloat16 prompt at mamba2-1.3b's widths
+    (64 heads of 64, 8 groups, d_state 128, chunk 128) hands the scan
+    (9, 512, 64, 128) float32 states, [h0, s_0, ..., s_7] over batch x
+    heads.  Its decays are redrawn in (0, 1): at random weights they are all
+    but zero, and the scan would carry nothing."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan.ref import ssd_state_scan_ref
+    from repro_torch.models.layers.mamba2 import ssd_chunked
+
+    B, S, H, P, G, N = PREFILL_BATCH, PREFILL_LEN, 64, 64, 8, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    seen = []
+
+    def capture(states, decay):
+        seen.append(states)
+        return ssd_state_scan_ref(states, decay)
+
+    bf16 = torch.bfloat16
+    ssd_chunked(F.silu(randn(B, S, H, P)).to(bf16), F.softplus(randn(B, S, H) - 3.0),
+                -torch.ones(H, device="cuda"), F.silu(randn(B, S, G, N)).to(bf16),
+                F.silu(randn(B, S, G, N)).to(bf16), 128,
+                h0=torch.zeros((B, H, P, N), device="cuda"), scan=capture)
+    (states,) = seen
+    decay = torch.rand(states.shape[:2], generator=gen, device="cuda")
+    return states, decay
+
+
 def main_path_plan(torch, gen, tokens: int, d: int, E: int, k: int, dtype):
     """Inputs of the three kernels as one MoE layer of the served model
     makes them: router logits of random activations, the picks' expert ids,
@@ -261,7 +338,7 @@ def main_path_plan(torch, gen, tokens: int, d: int, E: int, k: int, dtype):
     from repro_torch.kernels.topk_gating.ref import topk_gating_ref
     from repro_torch.models.layers.moe import capacities, dispatch_plan
 
-    cfg = get_config(ARCH)
+    cfg = get_config(MOE_ARCH)
     x = torch.randn((tokens, d), generator=gen, device="cuda", dtype=torch.float32).to(dtype)
     router = (0.02 * torch.randn((d, E), generator=gen, device="cuda")).to(dtype)
     logits = x @ router
@@ -335,6 +412,31 @@ def phase_kernel_checks(torch):
     offset = randn(64 * 128 + 1)[1:].view(64, 128)   # base pointer off the 16-byte grid
     cases.append(dispatch_case(torch, "misaligned_base", offset, randint(0, 64, 200), mask(200, 0.6), False))
     cases.append(dispatch_case(torch, "S1", randn(4, 8), randint(0, 4, 1), mask(1, 1.1), False))
+
+    # ---- ssd_state_scan: the served shape, timed, then awkward shapes.
+    states, decay = served_scan_inputs(torch, gen)
+    cases.append(ssd_case(torch, "prefill_f32", states, decay, timed=True))
+    cases.append(ssd_case(torch, "prefill_bf16_states", states.bfloat16(), decay, False))
+    del states, decay
+    torch.cuda.empty_cache()
+
+    def unit(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    cases.append(ssd_case(torch, "C1_zeros", randn(1, 64, 64, 128), unit(1, 64), False))
+    cases.append(ssd_case(torch, "C33", randn(33, 16, 64, 128), unit(33, 16), False))
+    cases.append(ssd_case(torch, "C300_decay_tiles", randn(300, 3, 8, 16), unit(300, 3), False))
+    cases.append(ssd_case(torch, "H1", randn(9, 1, 64, 128), unit(9, 1), False))
+    cases.append(ssd_case(torch, "P5_N7_scalar", randn(9, 7, 5, 7), unit(9, 7), False))
+    cases.append(ssd_case(torch, "P5_N7_scalar_bf16", randn(9, 7, 5, 7).bfloat16(), unit(9, 7), False))
+    cases.append(ssd_case(torch, "P4_N3_rows_share_a_vector", randn(9, 4, 4, 3), unit(9, 4), False))
+    cases.append(ssd_case(torch, "plane_2304_ragged_block", randn(5, 3, 64, 36), unit(5, 3), False))
+    shifted = randn(9 * 8 * 16 * 16 + 1)[1:].view(9, 8, 16, 16)   # base 4 bytes off the grid
+    cases.append(ssd_case(torch, "misaligned_base_f32", shifted, unit(9, 8), False))
+    shifted = randn(9 * 8 * 16 * 16 + 2).bfloat16()[2:].view(9, 8, 16, 16)
+    cases.append(ssd_case(torch, "misaligned_base_bf16", shifted, unit(9, 8), False))
+    exact = (torch.arange(9 * 6, device="cuda").view(9, 6) % 2).float()   # decays 0 and 1
+    cases.append(ssd_case(torch, "decays_0_and_1", randn(9, 6, 16, 16), exact, False))
     torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "cases": cases})
     return cases
@@ -442,11 +544,77 @@ def phase_moe(torch):
 
 
 # --------------------------------------------------------------------- #
-# Phase 5: the full model, served
+# Phase 5: one Mamba-2 layer, kernel scan against plain scan
 # --------------------------------------------------------------------- #
 
 
-def served_model(torch):
+def phase_mamba(torch):
+    """One Mamba-2 layer of mamba2-1.3b at full width (d_model 2048, 64
+    heads of 64, d_state 128) over 8 x 1024 tokens from a carried, non-zero
+    decode state, in float32 so that only the scan differs: once with the
+    kernel, once with the plain scan."""
+    import dataclasses
+    import math
+
+    from repro_torch import kernels
+    from repro_torch.config.base import get_config
+    from repro_torch.kernels.ssd_scan.ref import ssd_state_scan_ref
+    from repro_torch.models.layers.mamba2 import mamba_apply, mamba_specs, mamba_state_init
+    from repro_torch.models.param import tree_materialize
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    p = tree_materialize(mamba_specs(cfg), gen, dtype_override=torch.float32)
+    # dt_bias and A_log drawn as Mamba-2's own initialisation draws them (dt
+    # log-uniform in [0.001, 0.1], A uniform in [1, 16]), so that the chunk
+    # decays spread over (0, 1); the model's zero init puts them near 0.
+    nh = p["A_log"].shape[0]
+    u = torch.rand(nh, generator=gen, device="cuda")
+    dt0 = torch.exp(math.log(1e-3) + u * (math.log(0.1) - math.log(1e-3)))
+    p["dt_bias"] = dt0 + torch.log(-torch.expm1(-dt0))          # softplus(dt_bias) = dt0
+    p["A_log"] = torch.log(1.0 + 15.0 * torch.rand(nh, generator=gen, device="cuda"))
+    B, S = PREFILL_BATCH, PREFILL_LEN
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    state = {k: torch.randn(v.shape, generator=gen, device="cuda", dtype=v.dtype)
+             for k, v in mamba_state_init(cfg, B, torch.float32).items()}
+
+    kernels.reset_launch_counts()
+    y_k, st_k = mamba_apply(p, x, cfg=cfg, state=state)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()["ssd_state_scan"]
+    y_p, st_p = mamba_apply(p, x, cfg=cfg, state=state, scan=ssd_state_scan_ref)
+    torch.cuda.synchronize()
+    check(launched == 1 and kernels.launch_counts()["ssd_state_scan"] == 1,
+          "mamba: the kernel path must launch the scan once, the plain path never")
+    check(y_k.shape == (B, S, cfg.d_model) and st_k["ssm"].shape == state["ssm"].shape, "mamba: shapes")
+    errs = {}
+    for name, a, b in [("y", y_k, y_p)] + [(k, st_k[k], st_p[k]) for k in st_k]:
+        check(bool(torch.isfinite(a).all()), f"mamba: {name} not finite")
+        # The scan is exact (bit for bit against the plain version) and the
+        # rest of the layer is the same code on the same inputs: rtol 1e-5
+        # / atol 1e-5 leaves room only for a library's order of summation.
+        check(torch.allclose(a, b, rtol=1e-5, atol=1e-5), f"mamba: {name} differs")
+        errs[name] = float((a - b).abs().max())
+    equal = all(torch.equal(a, b) for a, b in [(y_k, y_p)] + [(st_k[k], st_p[k]) for k in st_k])
+    decay_in_chunk = torch.exp(-torch.exp(p["A_log"]) * torch.nn.functional.softplus(p["dt_bias"]) * 128)
+    del y_k, y_p, st_k, st_p
+    layer_ms = time_ms(torch, lambda: mamba_apply(p, x, cfg=cfg, state=state), iters=3, reps=3)
+    plain_ms = time_ms(torch, lambda: mamba_apply(p, x, cfg=cfg, state=state, scan=ssd_state_scan_ref),
+                       iters=3, reps=3)
+    emit({"phase": "mamba", "arch": cfg.name, "d_model": cfg.d_model, "batch": B, "seq": S,
+          "dtype": "float32", "max_abs_err": errs, "bitwise_equal": equal,
+          "chunk_decay_at_bias": [float(decay_in_chunk.min()), float(decay_in_chunk.max())],
+          "layer_ms": layer_ms, "layer_plain_scan_ms": plain_ms})
+    del p, x, state
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------- #
+# Phase 6: the full models, served
+# --------------------------------------------------------------------- #
+
+
+def served_model(torch, arch):
     """The full model with random weights from a seed, its prompt and its
     two serving steps."""
     from repro_torch.config.base import get_config
@@ -454,7 +622,7 @@ def served_model(torch):
     from repro_torch.models.model_api import build
     from repro_torch.train.step import make_decode_step, make_prefill_step
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     model = build(cfg)
     ctx = SpmdCtx(num_groups=1, num_ep_shards=EP_SHARDS)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -465,13 +633,26 @@ def served_model(torch):
     return model, ctx, params, tokens, make_prefill_step(model, ctx), make_decode_step(model, ctx)
 
 
+def expected_launches(cfg):
+    """Launches of each kernel in one prefill and DECODE_STEPS decode steps:
+    the MoE kernels once per MoE layer and step, the scan once per Mamba
+    layer and prefill (decode is the recurrent update, with no scan)."""
+    from repro_torch.models import transformer
+
+    nb = transformer.num_blocks(cfg)
+    n_moe = len(transformer.moe_layer_positions(cfg)) * nb
+    n_mamba = len(transformer.mamba_layer_positions(cfg)) * nb
+    moe = n_moe * (1 + DECODE_STEPS)
+    return {"topk_gating": moe, "load_histogram": moe, "dispatch_gather": moe,
+            "ssd_state_scan": n_mamba}
+
+
 def phase_serve(torch, served):
     from repro_torch import kernels
     from repro_torch.models import transformer
 
     model, ctx, params, tokens, prefill, decode = served
     cfg = model.cfg
-    n_moe = len(transformer.moe_layer_positions(cfg)) * transformer.num_blocks(cfg)
 
     def serve_once():
         state = model.decode_state_init(PREFILL_BATCH, PREFILL_LEN + DECODE_STEPS)
@@ -500,9 +681,10 @@ def phase_serve(torch, served):
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    want = n_moe * (1 + DECODE_STEPS)
+    want = expected_launches(cfg)
+    check(set(counts) == set(want), f"serve: kernels {sorted(counts)}")
     for name, n in counts.items():
-        check(n == want, f"serve: {name} launched {n} times, expected {want}")
+        check(n == want[name], f"serve {cfg.name}: {name} launched {n} times, expected {want[name]}")
     check(int(state["pos"]) == PREFILL_LEN + DECODE_STEPS, "serve: pos")
     stacked = torch.cat(all_logits, dim=1).float()
     check(stacked.shape == (PREFILL_BATCH, 1 + DECODE_STEPS, cfg.padded_vocab), "serve: logits shape")
@@ -510,37 +692,45 @@ def phase_serve(torch, served):
     check(bool((stacked[..., cfg.vocab_size:] == torch.finfo(transformer.model_dtype(cfg)).min).all()),
           "serve: pad-vocab logits not masked")
     check(all(int(t.max()) < cfg.vocab_size and int(t.min()) >= 0 for t in toks), "serve: token out of vocab")
-    check(len({tuple(t.flatten().tolist()) for t in toks}) > 1, "serve: decode repeats one token")
+    distinct = len({tuple(t.flatten().tolist()) for t in toks})
+    check(distinct > 1, "serve: decode repeats one token")
 
-    # Link telemetry: Model.prefill drops the new link states, so one more
-    # forward with carried state reads them (after the counts were taken).
-    _, aux = transformer.forward(params, tokens, cfg=cfg, ctx=ctx, dyskew=model.dyskew_init(ctx))
-    metrics = {k: float(v) for k, v in aux["metrics"].items()}
-    check(all(v == v for v in metrics.values()), "serve: a metric is NaN")
-    link = aux["dyskew"]["l0"]["link"]
-    check(link["tick"].tolist() == [1] * transformer.num_blocks(cfg), "serve: link tick")
-
-    emit({
+    row = {
         "phase": "serve", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-        "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k, "vocab": cfg.vocab_size,
-        "dtype": cfg.dtype, "params": model.num_params(),
+        "vocab": cfg.vocab_size, "dtype": cfg.dtype, "params": model.num_params(),
         "prefill_tokens": PREFILL_BATCH * PREFILL_LEN, "prefill_s": prefill_s,
         "prefill_tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
         "decode_steps": DECODE_STEPS, "decode_s": decode_s,
         "decode_tokens_per_s": PREFILL_BATCH * DECODE_STEPS / decode_s,
         "decode_ms_per_step": decode_s / DECODE_STEPS * 1e3,
-        "peak_memory_bytes": peak, "launches": counts,
-        "moe_dropped_frac": metrics["moe_dropped_frac"],
-        "moe_distribute_frac": metrics["moe_distribute_frac"],
-        "moe_shard_imbalance": metrics["moe_shard_imbalance"],
-    })
+        "peak_memory_bytes": peak, "launches": counts, "distinct_decode_steps": distinct,
+    }
+    if cfg.moe is not None:
+        # Link telemetry: Model.prefill drops the new link states, so one
+        # more forward with carried state reads them (after the counts were
+        # taken).
+        _, aux = transformer.forward(params, tokens, cfg=cfg, ctx=ctx, dyskew=model.dyskew_init(ctx))
+        metrics = {k: float(v) for k, v in aux["metrics"].items()}
+        check(all(v == v for v in metrics.values()), "serve: a metric is NaN")
+        link = aux["dyskew"]["l0"]["link"]
+        check(link["tick"].tolist() == [1] * transformer.num_blocks(cfg), "serve: link tick")
+        row.update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                   moe_dropped_frac=metrics["moe_dropped_frac"],
+                   moe_distribute_frac=metrics["moe_distribute_frac"],
+                   moe_shard_imbalance=metrics["moe_shard_imbalance"])
+    if cfg.mamba is not None:
+        row.update(ssm_heads=cfg.mamba.num_heads(cfg.d_model), d_state=cfg.mamba.d_state,
+                   chunk=cfg.mamba.chunk,
+                   ssm_state_bytes=sum(v["ssm"].numel() * 4 for k, v in state.items()
+                                       if k.startswith("ssm_l")))
+    emit(row)
     return counts
 
 
 def phase_profile(torch, served, decode_steps: int = 4):
     """Optional: where the device time of one prefill and of a few decode
-    steps goes, by kernel name, and how much of the wall time the card was
-    busy at all."""
+    steps goes, by kernel name and by the PyTorch operator that launched
+    the kernel, and how much of the wall time the card was busy at all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -561,28 +751,32 @@ def phase_profile(torch, served, decode_steps: int = 4):
                     logits, state = decode(params, state, tok)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
+        rows, by_op = [], []
         for evt in prof.key_averages():
-            # Rows of the device's own events only: a host operator's row
-            # repeats the time of the kernels it launched.
-            if evt.device_type != DeviceType.CUDA:
-                continue
             dev_us = getattr(evt, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-            if dev_us > 0:
-                rows.append((evt.key, dev_us / 1e3, evt.count))
+            if dev_us <= 0:
+                continue
+            # The busy time sums the device's own events only; a host
+            # operator's row repeats the time of the kernels it launched
+            # itself, and names the operation behind a generic kernel name.
+            (rows if evt.device_type == DeviceType.CUDA else by_op).append(
+                (evt.key, dev_us / 1e3, evt.count))
         rows.sort(key=lambda r: -r[1])
+        by_op.sort(key=lambda r: -r[1])
         busy_ms = sum(r[1] for r in rows)
         check(busy_ms > 0.0, f"profile {what}: the trace shows no device time")
         emit({
-            "phase": "profile", "what": what, "steps": 1 if what == "prefill" else decode_steps,
+            "phase": "profile", "arch": model.cfg.name, "what": what, "steps": 1 if what == "prefill" else decode_steps,
             "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
             "device_launches": sum(r[2] for r in rows),
             "top": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in rows[:14]],
+            "top_ops": [{"op": n, "ms": ms, "calls": c} for n, ms, c in by_op[:14]],
             "ours": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in rows
                      if "dyskew" in n or "topk_gating_kernel" in n or "histogram_kernel" in n
-                     or "counts_to_float" in n or "dispatch_vec_kernel" in n or "dispatch_bytes_kernel" in n],
+                     or "counts_to_float" in n or "dispatch_vec_kernel" in n or "dispatch_bytes_kernel" in n
+                     or "ssd_scan" in n],
         })
 
     run("prefill")
@@ -597,7 +791,7 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print the registers and shared memory ptxas reports for each kernel")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one prefill and four decode steps with torch.profiler")
+                    help="also trace one prefill and four decode steps of each model with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -621,17 +815,30 @@ def main() -> int:
           "sources": [os.path.relpath(s, ROOT) for s in _loader.sources()],
           "flags": list(_loader.NVCC_FLAGS)})
 
+    # float32 products in full float32 on both sides of every comparison.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    counts = {}
     with torch.no_grad():
         cases = phase_kernel_checks(torch)
         phase_moe(torch)
-        served = served_model(torch)
-        counts = phase_serve(torch, served)
-        if args.profile:
-            phase_profile(torch, served)
+        phase_mamba(torch)
+        # Each model's counts are read from its own serve run: the MoE
+        # kernels from granite's, the scan from mamba2's.
+        for arch, kernels_of_path in ((MOE_ARCH, ("topk_gating", "load_histogram", "dispatch_gather")),
+                                      (SSM_ARCH, ("ssd_state_scan",))):
+            served = served_model(torch, arch)
+            got = phase_serve(torch, served)
+            counts.update({k: got[k] for k in kernels_of_path})
+            if args.profile:
+                phase_profile(torch, served)
+            del served, got
+            torch.cuda.empty_cache()
 
     rows = []
     prefill_case = {"topk_gating": "prefill_bf16", "load_histogram": "prefill",
-                    "dispatch_gather": "prefill_bf16"}
+                    "dispatch_gather": "prefill_bf16", "ssd_state_scan": "prefill_f32"}
     for kname, case_name in prefill_case.items():
         mine = [c for c in cases if c["kernel"] == kname]
         c = next(c for c in mine if c["case"] == case_name)

@@ -190,6 +190,8 @@ class ArchConfig:
 #: has so far (the rest of ``repro.configs`` comes with their model families).
 ARCH_MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b",
+    "jamba-1.5-large-398b": "jamba_1_5_large",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 
 _CACHE: Dict[str, ArchConfig] = {}

@@ -3,6 +3,7 @@
 dispatch     — routing-plan gather (the redistribution data movement)
 histogram    — destination load counts (skew-model input, every step)
 topk_gating  — fused softmax + top-k routing
+ssd_scan     — Mamba-2 inter-chunk state scan (every Mamba layer's prefill)
 
 Each kernel ships kernel.py (the CUDA launch wrapper, which counts its
 launches), ref.py (the plain PyTorch version) and ops.py (CUDA tensor →
@@ -16,12 +17,14 @@ from typing import Dict
 
 from repro_torch.kernels.dispatch import kernel as _dispatch
 from repro_torch.kernels.histogram import kernel as _histogram
+from repro_torch.kernels.ssd_scan import kernel as _ssd_scan
 from repro_torch.kernels.topk_gating import kernel as _topk_gating
 
 _MODULES = {
     "topk_gating": _topk_gating,
     "load_histogram": _histogram,
     "dispatch_gather": _dispatch,
+    "ssd_state_scan": _ssd_scan,
 }
 
 

@@ -50,6 +50,10 @@ _SIGNATURES = {
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, _c_ptr,
     ),
+    "dyskew_ssd_state_scan": (
+        _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, _c_ptr,
+    ),
 }
 
 

@@ -1,0 +1,280 @@
+"""Mamba-2 (SSD — state-space duality) layer.
+
+Train/prefill uses the chunked SSD algorithm (arXiv:2405.21060): quadratic
+attention-like computation inside fixed-size chunks, linear recurrent state
+passing between chunks, so memory is O(chunk²) per chunk instead of O(S²).
+Decode is the O(1) recurrent update.
+
+Where ``repro`` fuses a chunk's quadratic part, its incoming-state output
+and its new state into one ``lax.scan`` body, ``ssd_chunked`` here runs the
+algorithm's four stages, each over all chunks at once but for the
+recurrence: (a) every chunk's own output, state contribution and decay;
+(b) the recurrence over chunks, in the hand-written ``ssd_state_scan``
+kernel (through ``repro_torch.kernels.ssd_scan.ops.state_scan``); (c) each
+chunk's output from the state entering it; (d) the final state.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.config.base import ArchConfig
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.models.layers.basic import norm_apply
+from repro_torch.models.param import spec
+
+#: (states (C, H, P, N), decay (C, H)) → (C, H, P, N) float32 exclusive prefix.
+Scan = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _dims(cfg: ArchConfig):
+    mc = cfg.mamba
+    d = cfg.d_model
+    di = mc.d_inner(d)
+    nh = mc.num_heads(d)
+    hd = mc.head_dim
+    g = max(nh // 8, 1)            # B/C groups (GQA-style state sharing)
+    n = mc.d_state
+    return d, di, nh, hd, g, n
+
+
+def mamba_specs(cfg: ArchConfig) -> Dict:
+    d, di, nh, hd, g, n = _dims(cfg)
+    w = cfg.mamba.conv_width
+    return {
+        "w_z": spec((d, di), ("embed", "mlp")),
+        "w_x": spec((d, di), ("embed", "mlp")),
+        "w_B": spec((d, g, n), ("embed", None, None)),
+        "w_C": spec((d, g, n), ("embed", None, None)),
+        "w_dt": spec((d, nh), ("embed", "ssm_heads")),
+        "dt_bias": spec((nh,), ("ssm_heads",), init="zeros"),
+        "A_log": spec((nh,), ("ssm_heads",), init="zeros"),
+        "D": spec((nh,), ("ssm_heads",), init="ones"),
+        "conv_x": spec((w, di), ("conv", "mlp"), scale=0.5),
+        "conv_B": spec((w, g, n), ("conv", None, None), scale=0.5),
+        "conv_C": spec((w, g, n), ("conv", None, None), scale=0.5),
+        "norm_scale": spec((di,), (None,), init="ones"),
+        "w_out": spec((di, d), ("mlp", "embed")),
+    }
+
+
+def _causal_conv(x: torch.Tensor, kernel: torch.Tensor, window: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv along axis 1. x: (B, S, C), kernel: (W, C);
+    the left context is ``window`` (B, W-1, C), zeros where it is None."""
+    w = kernel.shape[0]
+    S = x.shape[1]
+    if window is None:
+        pad = F.pad(x, (0, 0, w - 1, 0))
+    else:
+        pad = torch.cat([window.to(x.dtype), x], dim=1)
+    out = torch.zeros_like(x)
+    for i in range(w):
+        out = out + pad[:, i : i + S, :] * kernel[i]
+    return out
+
+
+def ssd_chunked(
+    x: torch.Tensor,     # (B, S, H, P)
+    dt: torch.Tensor,    # (B, S, H)  (post-softplus)
+    A: torch.Tensor,     # (H,)  (negative)
+    Bm: torch.Tensor,    # (B, S, G, N)
+    Cm: torch.Tensor,    # (B, S, G, N)
+    chunk: int,
+    h0: Optional[torch.Tensor] = None,   # (B, H, P, N)
+    scan: Optional[Scan] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD. Returns (y (B,S,H,P) in x's type, final_state (B,H,P,N)
+    float32).  ``scan`` runs the recurrence over chunks; the default is
+    ``ssd_ops.state_scan`` (the CUDA kernel for CUDA tensors)."""
+    scan = ssd_ops.state_scan if scan is None else scan
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg = H // G
+    assert S % chunk == 0, (S, chunk)
+    nc = S // chunk
+    L = chunk
+    f32 = torch.float32
+    dev = x.device
+
+    # Views with the heads split into (group, head in group): head h is
+    # (h // hpg, h % hpg), the head_group map of ``repro``.
+    xc = x.reshape(Bsz, nc, L, G, hpg, P)
+    dtc = dt.reshape(Bsz, nc, L, H).to(f32)
+    Bc = Bm.reshape(Bsz, nc, L, G, N)
+    Cc = Cm.reshape(Bsz, nc, L, G, N)
+
+    # ---- (a) every chunk at once: decays, own output, own state ---------- #
+    da_cs = torch.cumsum(dtc * A.to(f32), dim=2)            # (B,nc,L,H)
+    da_total = da_cs[:, :, -1, :]                           # (B,nc,H)
+
+    # Intra-chunk (quadratic within chunk).  The exponent is clamped as in
+    # ``repro``: entries with l < m are masked out afterwards.
+    seg = da_cs.permute(0, 1, 3, 2)                         # (B,nc,H,L)
+    smat = (seg[..., :, None] - seg[..., None, :]).clamp_(max=0.0).exp_()   # (B,nc,H,L,M)
+    CB = torch.einsum("bclgn,bcmgn->bcglm", Cc, Bc).to(f32)                # (B,nc,G,L,M)
+    smat.view(Bsz, nc, G, hpg, L, L).mul_(CB[:, :, :, None])
+    del CB
+    smat.mul_(dtc.permute(0, 1, 3, 2)[:, :, :, None, :])
+    smat.tril_()
+    xh = x.reshape(Bsz, nc, L, H, P).permute(0, 1, 3, 2, 4).to(f32)        # (B,nc,H,M,P)
+    y_intra = torch.matmul(smat, xh)                                       # (B,nc,H,L,P)
+    del smat, xh
+
+    # The chunk's own contribution to the state leaving it,
+    #   s_c[b, h, p, n] = sum_l x[l, h, p] * w_in[l, h] * B[l, g(h), n],
+    # as one product per (chunk, batch, group), written straight into the
+    # scan's input in (chunk, batch * head, P, N) order.  The scan runs over
+    # [h0, s_0, ..., s_{nc-1}] with decays [0, d_0, ..., d_{nc-1}]: its
+    # exclusive prefix at c + 1 is then the state entering chunk c, h0
+    # included, and the kernel needs no initial-state input.
+    w_in = torch.exp(da_total[:, :, None, :] - da_cs) * dtc                 # (B,nc,L,H)
+    xw = torch.empty((nc, Bsz, G, hpg, P, L), dtype=f32, device=dev)
+    torch.mul(
+        xc.permute(1, 0, 3, 4, 5, 2),
+        w_in.reshape(Bsz, nc, L, G, hpg).permute(1, 0, 3, 4, 2)[..., None, :],
+        out=xw,
+    )
+    Bt = Bc.permute(1, 0, 3, 2, 4).to(f32).reshape(nc * Bsz * G, L, N)
+    states = torch.empty((nc + 1, Bsz * H, P, N), dtype=f32, device=dev)
+    if h0 is None:
+        states[0].zero_()
+    else:
+        states[0].copy_(h0.reshape(Bsz * H, P, N))
+    torch.bmm(xw.view(nc * Bsz * G, hpg * P, L), Bt, out=states[1:].view(nc * Bsz * G, hpg * P, N))
+    del xw, Bt
+    decay = torch.zeros((nc + 1, Bsz * H), dtype=f32, device=dev)
+    decay[1:] = torch.exp(da_total).permute(1, 0, 2).reshape(nc, Bsz * H)
+
+    # ---- (b) the recurrence over chunks ---------------------------------- #
+    prefix = scan(states, decay)                            # (nc+1, B*H, P, N)
+
+    # ---- (c) each chunk's output from the state entering it -------------- #
+    #   y_state[l, h, p] = exp(da_cs[l, h]) * sum_n C[l, g(h), n] * h_in[h, p, n]
+    Ct = Cc.permute(1, 0, 3, 2, 4).to(f32).reshape(nc * Bsz * G, L, N)
+    h_in = prefix[1:].view(nc * Bsz * G, hpg * P, N)
+    y_state = torch.bmm(Ct, h_in.transpose(1, 2))          # (nc*B*G, L, hpg*P)
+    del Ct
+    y_state = y_state.view(nc, Bsz, G, L, hpg, P).permute(1, 0, 3, 2, 4, 5)
+    y = torch.empty((Bsz, nc, L, G, hpg, P), dtype=x.dtype, device=dev)
+    torch.addcmul(
+        y_intra.view(Bsz, nc, G, hpg, L, P).permute(0, 1, 4, 2, 3, 5),
+        y_state,
+        torch.exp(da_cs).view(Bsz, nc, L, G, hpg, 1),
+        out=y,
+    )
+    del y_intra, y_state
+
+    # ---- (d) the final state: one more step after the last chunk --------- #
+    hT = torch.addcmul(states[nc], prefix[nc], decay[nc][:, None, None])
+    return y.view(Bsz, S, H, P), hT.view(Bsz, H, P, N)
+
+
+def mamba_apply(
+    p: Dict,
+    xin: torch.Tensor,                 # (B, S, d)
+    *,
+    cfg: ArchConfig,
+    state: Optional[Dict] = None,      # decode state {"ssm", "conv_x", "conv_B", "conv_C"}
+    scan: Optional[Scan] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Full-sequence (train/prefill) when state is None or S > 1; single-step
+    decode otherwise. Returns (y (B,S,d), new_state or None).  ``state`` is
+    not mutated: the new state is made of fresh tensors.  ``scan`` goes to
+    ``ssd_chunked`` (the decode step runs no scan)."""
+    d, di, nh, hd, g, n = _dims(cfg)
+    mc = cfg.mamba
+    w = mc.conv_width
+    B, S, _ = xin.shape
+    dtype = xin.dtype
+    f32 = torch.float32
+
+    z = xin @ p["w_z"].to(dtype)                                   # (B,S,di)
+    xproj = xin @ p["w_x"].to(dtype)                               # (B,S,di)
+    Bproj = xin @ p["w_B"].to(dtype).reshape(d, g * n)             # (B,S,g*n)
+    Cproj = xin @ p["w_C"].to(dtype).reshape(d, g * n)
+    dt = xin @ p["w_dt"].to(dtype)                                 # (B,S,nh)
+
+    A = -torch.exp(p["A_log"].to(f32))
+    dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))
+    D = p["D"].to(f32)
+    conv_x = p["conv_x"].to(dtype)
+    conv_B = p["conv_B"].to(dtype).reshape(w, g * n)
+    conv_C = p["conv_C"].to(dtype).reshape(w, g * n)
+
+    if state is None or S > 1:
+        # Full-sequence path (train, or prefill seeding a decode state).
+        # Conv left-context comes from the carried window (zeros at pos 0).
+        st = state or {}
+        xconv = F.silu(_causal_conv(xproj, conv_x, st.get("conv_x")))
+        Bco = F.silu(_causal_conv(Bproj, conv_B, st.get("conv_B"))).reshape(B, S, g, n)
+        Cco = F.silu(_causal_conv(Cproj, conv_C, st.get("conv_C"))).reshape(B, S, g, n)
+        xh = xconv.reshape(B, S, nh, hd)
+        y, hT = ssd_chunked(
+            xh, dt, A, Bco, Cco, min(mc.chunk, S), h0=st.get("ssm"), scan=scan,
+        )
+        y = y + xh.to(f32) * D[None, None, :, None]
+        if state is not None:
+            # Carry conv windows (last w-1 pre-activation inputs) + state.
+            def tail(win, xs):
+                return torch.cat([win.to(dtype), xs], dim=1)[:, -(w - 1):, :]
+
+            new_state = {
+                "ssm": hT,
+                "conv_x": tail(state["conv_x"], xproj),
+                "conv_B": tail(state["conv_B"], Bproj),
+                "conv_C": tail(state["conv_C"], Cproj),
+            }
+        else:
+            new_state = None
+    else:
+        # Decode: roll conv windows, recurrent SSM update. S == 1.
+        def conv_step(window, xt, kernel):
+            # window: (B, w-1, C); xt: (B, 1, C)
+            full = torch.cat([window.to(dtype), xt], dim=1)        # (B, w, C)
+            out = torch.einsum("bwc,wc->bc", full, kernel)
+            return full[:, 1:], out[:, None]
+
+        cw_x, xconv = conv_step(state["conv_x"], xproj, conv_x)
+        cw_B, Bco = conv_step(state["conv_B"], Bproj, conv_B)
+        cw_C, Cco = conv_step(state["conv_C"], Cproj, conv_C)
+        xconv = F.silu(xconv)
+        Bco = F.silu(Bco).reshape(B, g, n)
+        Cco = F.silu(Cco).reshape(B, g, n)
+        xh = xconv.reshape(B, nh, hd)
+
+        head_group = torch.arange(nh, device=xin.device) // (nh // g)
+        dt1 = dt[:, 0]                                             # (B,nh)
+        da = torch.exp(dt1 * A)                                    # (B,nh)
+        Bh = Bco[:, head_group]                                    # (B,nh,n)
+        Ch = Cco[:, head_group].to(f32)
+        h_prev = state["ssm"]                                      # (B,nh,hd,n)
+        h_new = h_prev * da[..., None, None] + torch.einsum(
+            "bhn,bhp->bhpn", Bh * dt1[..., None], xh.to(f32)
+        )
+        y = torch.einsum("bhpn,bhn->bhp", h_new, Ch)
+        y = y + xh.to(f32) * D[None, :, None]
+        y = y[:, None]                                             # (B,1,nh,hd)
+        new_state = {"ssm": h_new, "conv_x": cw_x, "conv_B": cw_B, "conv_C": cw_C}
+
+    y = y.reshape(B, S, di).to(dtype)
+    y = y * F.silu(z)
+    y = norm_apply({"scale": p["norm_scale"]}, y, "rmsnorm")
+    return y @ p["w_out"].to(dtype), new_state
+
+
+def mamba_state_init(
+    cfg: ArchConfig, batch: int, dtype: torch.dtype, device: DeviceLike = None,
+) -> Dict:
+    d, di, nh, hd, g, n = _dims(cfg)
+    w = cfg.mamba.conv_width
+    device = resolve_device(device)
+    return {
+        "ssm": torch.zeros((batch, nh, hd, n), dtype=torch.float32, device=device),
+        "conv_x": torch.zeros((batch, w - 1, di), dtype=dtype, device=device),
+        "conv_B": torch.zeros((batch, w - 1, g * n), dtype=dtype, device=device),
+        "conv_C": torch.zeros((batch, w - 1, g * n), dtype=dtype, device=device),
+    }

@@ -1,6 +1,5 @@
-"""Unified decoder-only transformer: attention mixers with MoE or dense
-ffn layers (the Mamba-2 mixer of the ssm / hybrid families is not ported
-yet, see ROADMAP.md).
+"""Unified decoder-only transformer covering the dense / MoE / SSM /
+hybrid families: attention or Mamba-2 mixers with MoE or dense ffn layers.
 
 Layers are grouped into *blocks* of ``period`` layers (period = lcm of the
 attention interleave and the MoE every-other layout) and every parameter
@@ -25,6 +24,11 @@ from repro_torch.models.layers.attention import (
     mlp_apply,
     mlp_specs,
 )
+from repro_torch.models.layers.mamba2 import (
+    mamba_apply,
+    mamba_specs,
+    mamba_state_init,
+)
 from repro_torch.models.layers.moe import (
     SpmdCtx,
     moe_apply,
@@ -38,11 +42,6 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
 }
-
-_MAMBA_TODO = (
-    "the Mamba-2 mixer is not ported yet: ROADMAP.md queue A, 'Mamba-2 and "
-    "the other model families', with the ssd_state_scan kernel of queue B"
-)
 
 
 def model_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -76,7 +75,7 @@ def layer_specs(cfg: ArchConfig, layer_idx: int) -> Dict:
     if cfg.is_attention_layer(layer_idx) and cfg.num_heads > 0:
         out["attn"] = attention_specs(cfg)
     else:
-        raise NotImplementedError(_MAMBA_TODO)
+        out["mamba"] = mamba_specs(cfg)
     if cfg.is_moe_layer(layer_idx):
         out["moe"] = moe_specs(cfg)
     elif cfg.d_ff > 0:
@@ -110,7 +109,7 @@ def model_specs(cfg: ArchConfig) -> Dict:
 
 
 # ------------------------------------------------------------------ #
-# Runtime state (DySkew MoE links, KV caches)
+# Runtime state (DySkew MoE links, KV caches, SSM states)
 # ------------------------------------------------------------------ #
 
 
@@ -151,15 +150,13 @@ def decode_state_init(
     cfg: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype,
     device: DeviceLike = None,
 ) -> Dict:
-    """KV caches + position counter for decode."""
+    """KV caches + SSM states + position counter for decode."""
     dev = resolve_device(device)
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError(
             "the int8 KV cache is not ported yet: ROADMAP.md queue A, "
             "'the other model families (int8 KV cache, encdec, VLM prefix)'"
         )
-    if mamba_layer_positions(cfg):
-        raise NotImplementedError(_MAMBA_TODO)
     nb = num_blocks(cfg)
     K, hd = cfg.num_kv_heads, cfg.head_dim_
     out: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -168,6 +165,11 @@ def decode_state_init(
             "k": torch.zeros((nb, batch, max_seq, K, hd), dtype=dtype, device=dev),
             "v": torch.zeros((nb, batch, max_seq, K, hd), dtype=dtype, device=dev),
         }
+    for j in mamba_layer_positions(cfg):
+        one = mamba_state_init(cfg, batch, dtype, dev)
+        out[f"ssm_l{j}"] = tree_map(
+            lambda a: a.expand((nb,) + tuple(a.shape)).clone(), one
+        )
     return out
 
 
@@ -189,7 +191,8 @@ def _apply_layer(
     moe_state: Optional[Dict],
     metrics: Dict,
 ):
-    """One layer: pre-norm mixer + pre-norm ffn with residuals."""
+    """One layer: pre-norm mixer + pre-norm ffn with residuals.  For a Mamba
+    position ``cache`` is the layer's SSM state, updated in place."""
     new_cache = None
     new_moe_state = None
     h = basic.norm_apply(lp["norm1"], x, cfg.norm)
@@ -200,7 +203,14 @@ def _apply_layer(
         )
         x = x + attn_out
     else:
-        raise NotImplementedError(_MAMBA_TODO)
+        mamba_out, new_ssm = mamba_apply(lp["mamba"], h, cfg=cfg, state=cache)
+        if cache is not None:
+            # In place, as the KV caches: the stacked decode state keeps
+            # its tensors.
+            for key, v in new_ssm.items():
+                cache[key].copy_(v)
+            new_cache = cache
+        x = x + mamba_out
 
     if "moe" in lp:
         h = basic.norm_apply(lp["norm2"], x, cfg.norm)
@@ -248,8 +258,9 @@ def forward(
     """Returns (logits (B,S,V), aux) where aux carries new dyskew states,
     new decode state, and scalar metrics.
 
-    MUTATES ``decode_state``: the KV caches are updated in place and the
-    returned decode state holds the same cache tensors (with a new ``pos``).
+    MUTATES ``decode_state``: the KV caches and the SSM states are updated in
+    place and the returned decode state holds the same tensors (with a new
+    ``pos``).
     ``dyskew`` is not mutated; the new link states are fresh tensors.
     """
     if prefix_embeds is not None:
@@ -281,6 +292,7 @@ def forward(
     period = block_period(cfg)
     nb = num_blocks(cfg)
     attn_pos = attn_layer_positions(cfg)
+    mamba_pos = mamba_layer_positions(cfg)
     moe_pos = moe_layer_positions(cfg)
 
     block_metrics: List[Dict[str, torch.Tensor]] = []
@@ -293,6 +305,8 @@ def forward(
             cache_j = None
             if decode_state is not None and j in attn_pos:
                 cache_j = _take_block(decode_state[f"kv_l{j}"], b)
+            elif decode_state is not None and j in mamba_pos:
+                cache_j = _take_block(decode_state[f"ssm_l{j}"], b)
             moe_state_j = None
             if dyskew is not None and j in moe_pos:
                 moe_state_j = _take_block(dyskew[f"l{j}"], b)

@@ -32,6 +32,7 @@ from repro_torch.kernels.dispatch.ref import dispatch_gather_ref as t_dispatch_r
 from repro_torch.kernels.histogram import kernel as t_hist_kernel
 from repro_torch.kernels.histogram import ops as t_hist_ops
 from repro_torch.kernels.histogram.ref import load_histogram_ref as t_hist_ref
+from repro_torch.kernels.ssd_scan import ops as t_ssd_ops
 from repro_torch.kernels.topk_gating import kernel as t_gating_kernel
 from repro_torch.kernels.topk_gating import ops as t_gating_ops
 from repro_torch.kernels.topk_gating.ref import topk_gating_ref as t_gating_ref
@@ -197,8 +198,10 @@ class TestWrappers:
         t_hist_ops.histogram(torch.zeros(4, dtype=torch.int32), 8)
         t_dispatch_ops.dispatch(torch.zeros(4, 8), torch.zeros(2, dtype=torch.int32),
                                 torch.ones(2, dtype=torch.bool))
+        t_ssd_ops.state_scan(torch.zeros(2, 3, 4, 4), torch.ones(2, 3))
         assert tk.launch_counts() == {
             "topk_gating": 0, "load_histogram": 0, "dispatch_gather": 0,
+            "ssd_state_scan": 0,
         }
 
     def test_reset_launch_counts(self):
@@ -231,7 +234,8 @@ class TestWrappers:
         import sys
         src = pathlib.Path(__file__).resolve().parents[1] / "src"
         code = (
-            "import sys, repro_torch.kernels, repro_torch.models.layers.moe;"
+            "import sys, repro_torch.kernels, repro_torch.models.layers.moe,"
+            " repro_torch.models.layers.mamba2;"
             "assert 'repro_torch.kernels._loader' not in sys.modules"
         )
         subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
@@ -240,7 +244,7 @@ class TestWrappers:
     def test_sources_exist_for_every_kernel(self):
         from repro_torch.kernels import _loader
         assert [p.name for p in _loader.sources()] == [
-            "dispatch.cu", "histogram.cu", "topk_gating.cu",
+            "dispatch.cu", "histogram.cu", "ssd_state_scan.cu", "topk_gating.cu",
         ]
         for path in _loader.sources():
             text = path.read_text()

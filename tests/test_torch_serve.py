@@ -286,12 +286,12 @@ def test_what_is_not_ported_says_so():
         )
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_attention.quantize_kv(torch.zeros(1, 1, 1, 4))
-    with pytest.raises(NotImplementedError, match="Mamba-2"):
-        t_transformer.model_specs(dataclasses.replace(cfg, family="ssm"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_build(dataclasses.replace(cfg, family="encdec"))
+    with pytest.raises(NotImplementedError, match="encdec"):
+        t_build(dataclasses.replace(cfg, family="encdec", encoder_layers=2, encoder_len=16))
     with pytest.raises(KeyError):
-        t_get_config("mamba2-1.3b")
+        t_get_config("whisper-base")
 
 
 def test_default_device_needs_a_gpu():
