@@ -72,6 +72,13 @@ SOURCES = {
     "ssd_state_scan": "src/repro_torch/kernels/csrc/ssd_state_scan.cu",
 }
 
+# The device kernels of csrc/, as the profiler names them.
+PORT_KERNEL_NAMES = (
+    "topk_gating_kernel", "histogram_block_kernel", "histogram_cluster_kernel",
+    "dispatch_gather_kernel", "dispatch_bytes_kernel", "ssd_scan_vec_kernel",
+    "ssd_scan_scalar_kernel",
+)
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -220,7 +227,28 @@ def histogram_case(torch, name, ids, E, timed):
     return out
 
 
-def dispatch_case(torch, name, x, src, valid, timed):
+def dispatch_controls(torch, x, src, valid):
+    """Three runs that split the gather's time between re-reads of ``x``,
+    the buffer's stores and the card's store rate, timed in the same call as
+    the kernel: ``resident_ms`` keeps the mask but maps every source into
+    the first 64 rows of ``x`` (the re-reads then surely hit L2),
+    ``zeros_ms`` leaves every slot empty (stores alone), ``fill_ms`` is
+    ``zero_()`` on a buffer of the same size."""
+    from repro_torch.kernels.dispatch.kernel import dispatch_gather
+
+    resident = src % min(64, x.shape[0])
+    empty = torch.zeros_like(valid)
+    buf = torch.empty((src.numel(), x.shape[1]), dtype=x.dtype, device=x.device)
+    out = {
+        "resident_ms": time_ms(torch, lambda: dispatch_gather(x, resident, valid)),
+        "zeros_ms": time_ms(torch, lambda: dispatch_gather(x, src, empty)),
+        "fill_ms": time_ms(torch, lambda: buf.zero_()),
+    }
+    del resident, empty, buf
+    return out
+
+
+def dispatch_case(torch, name, x, src, valid, timed, controls=False):
     from repro_torch.kernels.dispatch.kernel import dispatch_gather
     from repro_torch.kernels.dispatch.ref import dispatch_gather_ref
 
@@ -255,6 +283,8 @@ def dispatch_case(torch, name, x, src, valid, timed):
             bytes=nbytes, bound_ms=b_ms, bound_by=by,
         )
         del src64
+        if controls:
+            out["controls"] = dispatch_controls(torch, x, src, valid)
     del out_k, out_r
     return out
 
@@ -352,6 +382,8 @@ def main_path_plan(torch, gen, tokens: int, d: int, E: int, k: int, dtype):
 
 
 def phase_kernel_checks(torch):
+    from repro_torch.kernels.dispatch.kernel import WARPS_PER_BLOCK, launch_blocks
+    from repro_torch.kernels.histogram.kernel import SINGLE_BLOCK_MAX
     from repro_torch.kernels.topk_gating.kernel import topk_gating
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -369,8 +401,9 @@ def phase_kernel_checks(torch):
         x, logits, flat_e, src, valid = main_path_plan(torch, gen, tokens, d, E, k, torch.bfloat16)
         cases.append(gating_case(torch, f"{label}_bf16", logits, k, timed=True))
         cases.append(histogram_case(torch, label, flat_e, E, timed=True))
-        cases.append(dispatch_case(torch, f"{label}_bf16", x, src, valid, timed=True))
-        cases.append(dispatch_case(torch, f"{label}_f32", x.float(), src, valid, timed=True))
+        served = label == "prefill"
+        cases.append(dispatch_case(torch, f"{label}_bf16", x, src, valid, timed=True, controls=served))
+        cases.append(dispatch_case(torch, f"{label}_f32", x.float(), src, valid, timed=True, controls=served))
         del x, logits, flat_e, src, valid
     torch.cuda.empty_cache()
 
@@ -398,8 +431,15 @@ def phase_kernel_checks(torch):
     cases.append(histogram_case(torch, "N100001_E512", randint(0, 512, 100001), 512, False))
     cases.append(histogram_case(torch, "N1_E32", randint(0, 32, 1), 32, False))
     cases.append(histogram_case(torch, "N999_E7_out_of_range", randint(-3, 11, 999), 7, False))
-    cases.append(histogram_case(torch, "N5000011_E384", randint(0, 384, 5000011), 384, False))
+    # Off the main path, one cluster counts 20 MB of ids: timed for the record.
+    cases.append(histogram_case(torch, "N5000011_E384", randint(0, 384, 5000011), 384, True))
     cases.append(histogram_case(torch, "all_one_bin", torch.full((70001,), 5, device="cuda", dtype=torch.int32), 16, False))
+    cases.append(histogram_case(torch, "N0_E32", randint(0, 32, 0), 32, False))
+    cases.append(histogram_case(torch, "N1_E12288", randint(0, 12288, 1), 12288, False))
+    # Either side of the one-block threshold, and ids off the 16-byte grid.
+    for n in (SINGLE_BLOCK_MAX - 1, SINGLE_BLOCK_MAX, SINGLE_BLOCK_MAX + 1):
+        cases.append(histogram_case(torch, f"N{n}_E32", randint(-1, 33, n), 32, False))
+    cases.append(histogram_case(torch, "N70000_E12288_off_grid", randint(0, 12288, 70003)[3:], 12288, False))
 
     def mask(n, p):
         return torch.rand((n,), generator=gen, device="cuda") < p
@@ -412,6 +452,13 @@ def phase_kernel_checks(torch):
     offset = randn(64 * 128 + 1)[1:].view(64, 128)   # base pointer off the 16-byte grid
     cases.append(dispatch_case(torch, "misaligned_base", offset, randint(0, 64, 200), mask(200, 0.6), False))
     cases.append(dispatch_case(torch, "S1", randn(4, 8), randint(0, 4, 1), mask(1, 1.1), False))
+    cases.append(dispatch_case(torch, "all_valid", randn(512, 1024).bfloat16(), randint(0, 512, 20000), mask(20000, 1.1), False))
+    cases.append(dispatch_case(torch, "one_row", randn(512, 1024).bfloat16(), torch.full((20000,), 7, device="cuda", dtype=torch.int32), mask(20000, 0.5), False))
+    # More slots than the persistent grid has warps, and no multiple of it;
+    # a row of 250 vectors ends in a partial piece.
+    grid_warps = launch_blocks(1 << 30, torch.cuda.get_device_properties(0).multi_processor_count) * WARPS_PER_BLOCK
+    cases.append(dispatch_case(torch, "S_ragged_grid_f32", randn(300, 1000), randint(0, 300, 3 * grid_warps + 17), mask(3 * grid_warps + 17, 0.6), False))
+    cases.append(dispatch_case(torch, "S_ragged_grid_f32_D1024", randn(300, 1024), randint(0, 300, 2 * grid_warps + 5), mask(2 * grid_warps + 5, 0.6), False))
 
     # ---- ssd_state_scan: the served shape, timed, then awkward shapes.
     states, decay = served_scan_inputs(torch, gen)
@@ -774,9 +821,8 @@ def phase_profile(torch, served, decode_steps: int = 4):
             "top": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in rows[:14]],
             "top_ops": [{"op": n, "ms": ms, "calls": c} for n, ms, c in by_op[:14]],
             "ours": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in rows
-                     if "dyskew" in n or "topk_gating_kernel" in n or "histogram_kernel" in n
-                     or "counts_to_float" in n or "dispatch_vec_kernel" in n or "dispatch_bytes_kernel" in n
-                     or "ssd_scan" in n],
+                     if any(k in n for k in PORT_KERNEL_NAMES)],
+            "memsets": sum(c for n, _, c in rows if "memset" in n.lower()),
         })
 
     run("prefill")

@@ -44,11 +44,12 @@ _SIGNATURES = {
         ctypes.c_int, _c_ptr,
     ),
     "dyskew_load_histogram": (
-        _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong, ctypes.c_int, _c_ptr,
+        _c_ptr, _c_ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _c_ptr,
     ),
     "dyskew_dispatch_gather": (
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, _c_ptr,
+        ctypes.c_longlong, ctypes.c_int, _c_ptr,
     ),
     "dyskew_ssd_state_scan": (
         _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong, ctypes.c_longlong,

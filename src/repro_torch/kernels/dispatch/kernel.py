@@ -3,18 +3,38 @@
 Given activations ``x`` (T, D), a slot→source-token map ``src`` (S,) and a
 slot validity mask, produce the dispatch buffer (S, D) with invalid slots
 zeroed.  This is the hot inner loop of DySkew's redistribution: the
-(E, C_buf, d) MoE dispatch buffer is built from this primitive.  One warp
-copies one row in 16-byte pieces and never reads ``x`` for an empty slot,
+(E, C_buf, d) MoE dispatch buffer is built from this primitive.  A
+persistent grid of warps walks the slots, keeps the rows of ``x`` in L2
+while the buffer streams past it, and never reads ``x`` for an empty slot,
 see the source.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 #: Kernel launches made through this wrapper (reset by
 #: ``repro_torch.kernels.reset_launch_counts``).
 launches = 0
+
+#: Warps in a block of csrc/dispatch.cu (kWarpsPerBlock), one slot each at a time.
+WARPS_PER_BLOCK = 8
+#: Resident blocks per SM the kernel is built for (kMinBlocksPerSm).
+BLOCKS_PER_SM = 4
+
+
+def launch_blocks(num_slots: int, sm_count: int) -> int:
+    """The persistent grid: enough blocks to fill every SM with
+    ``BLOCKS_PER_SM`` blocks, and never more than give each warp a slot."""
+    need = -(-num_slots // WARPS_PER_BLOCK)
+    return max(1, min(need, sm_count * BLOCKS_PER_SM))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def dispatch_gather(x: torch.Tensor, src: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -48,6 +68,7 @@ def dispatch_gather(x: torch.Tensor, src: torch.Tensor, valid: torch.Tensor) -> 
         "dyskew_dispatch_gather", x.device,
         x.data_ptr(), src.data_ptr(), valid.data_ptr(), out.data_ptr(),
         S, T, D * x.element_size(),
+        launch_blocks(S, _sm_count(x.device.index)),
     )
     launches += 1
     return out

@@ -2,11 +2,15 @@
 
 Every DySkew decision consumes per-destination load counts — expert loads
 in the MoE dispatch, per-shard token counts in the data path.  This kernel
-computes ``counts[e] = |{i : ids[i] == e}|`` for E destinations with
-per-block shared-memory bins merged by integer atomics, see the source.
+computes ``counts[e] = |{i : ids[i] == e}|`` for E destinations in one
+launch: one block for few ids, else one thread-block cluster whose blocks
+merge their shared-memory bins through distributed shared memory, see the
+source.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -15,6 +19,28 @@ import torch
 launches = 0
 
 MAX_DEST = 12288
+#: Up to this many ids one block counts them all: a cluster's launch and its
+#: two barriers cost more than one block's extra loads below it (measured on
+#: an H100, see PERF.md).
+SINGLE_BLOCK_MAX = 32768
+#: Ids per block of a cluster, and the most blocks in one (csrc/histogram.cu's
+#: kMaxCluster, above the portable 8).
+IDS_PER_CLUSTER_BLOCK = 8192
+MAX_CLUSTER = 16
+MAX_THREADS = 1024
+
+
+def launch_shape(n: int, num_dest: int) -> Tuple[int, int]:
+    """(cluster_blocks, threads) for ``n`` ids over ``num_dest`` bins.
+
+    Up to ``SINGLE_BLOCK_MAX`` ids: one block, with a thread for every four
+    ids (one 16-byte vector) or for every bin, whichever is more, at least
+    256 and at most 1024.  Above: one cluster of 1024-thread blocks, a block
+    for every ``IDS_PER_CLUSTER_BLOCK`` ids, at most ``MAX_CLUSTER``."""
+    if n <= SINGLE_BLOCK_MAX:
+        want = max(-(-n // 4), num_dest, 256)
+        return 1, min(MAX_THREADS, -(-want // 32) * 32)
+    return min(MAX_CLUSTER, -(-n // IDS_PER_CLUSTER_BLOCK)), MAX_THREADS
 
 
 def load_histogram(ids: torch.Tensor, *, num_dest: int) -> torch.Tensor:
@@ -31,14 +57,11 @@ def load_histogram(ids: torch.Tensor, *, num_dest: int) -> torch.Tensor:
     if not 1 <= num_dest <= MAX_DEST:
         raise ValueError(f"num_dest={num_dest} outside [1, {MAX_DEST}]")
     ids = ids.contiguous()
-    # The integer bins the blocks merge into.  Freed on return, which is safe:
-    # the allocator hands the block out again only to work queued behind this
-    # launch on the same stream.
-    scratch = torch.empty((num_dest,), dtype=torch.int32, device=ids.device)
     out = torch.empty((num_dest,), dtype=torch.float32, device=ids.device)
     _loader.launch(
         "dyskew_load_histogram", ids.device,
-        ids.data_ptr(), scratch.data_ptr(), out.data_ptr(), ids.numel(), num_dest,
+        ids.data_ptr(), out.data_ptr(), ids.numel(), num_dest,
+        *launch_shape(ids.numel(), num_dest),
     )
     launches += 1
     return out

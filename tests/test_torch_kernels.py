@@ -14,6 +14,8 @@ histogram EQUAL (integer counts); dispatch EQUAL by value (pure data
 movement) in float32 and bfloat16.
 """
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -249,3 +251,88 @@ class TestWrappers:
         for path in _loader.sources():
             text = path.read_text()
             assert 'extern "C" int dyskew_' in text and "<<<" in text
+
+
+def _csrc_constant(source: str, name: str) -> int:
+    import re
+
+    from repro_torch.kernels import _loader
+    text = (_loader.CSRC_DIR / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+class TestLaunchShapes:
+    """The launch shapes the wrappers hand the two redesigned kernels are
+    computed in Python, so that they can be checked here without a card."""
+
+    @pytest.mark.parametrize("E", [1, 32, 12288])
+    @pytest.mark.parametrize("N", [0, 1, 64, 8191, 8192, 8193, 32767, 32768, 32769,
+                                   65536, 5000011])
+    def test_histogram_launch_shape(self, N, E):
+        blocks, threads = t_hist_kernel.launch_shape(N, E)
+        assert threads % 32 == 0 and 32 <= threads <= t_hist_kernel.MAX_THREADS
+        if N <= t_hist_kernel.SINGLE_BLOCK_MAX:
+            # One block, a thread for every 16-byte vector of ids or every
+            # bin, up to 1024.
+            assert blocks == 1
+            assert threads * 4 >= min(N, 4 * t_hist_kernel.MAX_THREADS)
+            assert threads >= min(E, t_hist_kernel.MAX_THREADS)
+        else:
+            assert 2 <= blocks <= t_hist_kernel.MAX_CLUSTER <= 16
+            assert threads == t_hist_kernel.MAX_THREADS
+        # Never more blocks than the ids need.
+        assert (blocks - 1) * t_hist_kernel.IDS_PER_CLUSTER_BLOCK < max(N, 1)
+
+    def test_histogram_limits_match_the_source(self):
+        assert _csrc_constant("histogram.cu", "kMaxDest") == t_hist_kernel.MAX_DEST
+        assert _csrc_constant("histogram.cu", "kMaxThreads") == t_hist_kernel.MAX_THREADS
+        assert t_hist_kernel.MAX_CLUSTER <= _csrc_constant("histogram.cu", "kMaxCluster")
+
+    @pytest.mark.parametrize("sm_count", [1, 132])
+    @pytest.mark.parametrize("S", [1, 7, 8, 9, 128, 4224, 163840, 10_000_019])
+    def test_dispatch_launch_blocks(self, S, sm_count):
+        blocks = t_dispatch_kernel.launch_blocks(S, sm_count)
+        warps = t_dispatch_kernel.WARPS_PER_BLOCK
+        assert 1 <= blocks <= sm_count * t_dispatch_kernel.BLOCKS_PER_SM
+        # Never a block whose warps all find no slot ...
+        assert (blocks - 1) * warps < S
+        # ... and every slot has a warp in the first round, where the grid allows.
+        if S <= sm_count * t_dispatch_kernel.BLOCKS_PER_SM * warps:
+            assert blocks * warps >= S
+
+    def test_dispatch_grid_matches_the_source(self):
+        assert _csrc_constant("dispatch.cu", "kWarpsPerBlock") == t_dispatch_kernel.WARPS_PER_BLOCK
+        assert _csrc_constant("dispatch.cu", "kMinBlocksPerSm") == t_dispatch_kernel.BLOCKS_PER_SM
+
+    @pytest.mark.parametrize("name", sorted(tk._MODULES))
+    def test_signature_matches_wrapper_and_source(self, name):
+        """``_loader._SIGNATURES`` lists, for each entry point, the arguments
+        its wrapper passes plus the stream, and as many as the C function
+        declares.  Read from the sources, nothing built."""
+        import ast
+        import inspect
+        import re
+
+        from repro_torch.kernels import _loader
+
+        tree = ast.parse(inspect.getsource(tk._MODULES[name]))
+        calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                 and isinstance(n.func, ast.Attribute) and n.func.attr == "launch"
+                 and isinstance(n.func.value, ast.Name) and n.func.value.id == "_loader"]
+        assert len(calls) == 1
+        call = calls[0]
+        entry = call.args[0].value
+        passed = 0
+        for arg in call.args[2:]:
+            if isinstance(arg, ast.Starred):
+                # A starred tuple-returning helper: count what it returns.
+                helper = getattr(tk._MODULES[name], arg.value.func.id)
+                passed += len(helper(*([1] * len(arg.value.args))))
+            else:
+                passed += 1
+        sig = _loader._SIGNATURES[entry]
+        assert passed + 1 == len(sig)
+        assert sig[-1] is ctypes.c_void_p
+        text = "\n".join(p.read_text() for p in _loader.sources())
+        params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text).group(1)
+        assert len(params.split(",")) == len(sig)
