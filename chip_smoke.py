@@ -17,6 +17,7 @@ Standard output is one JSON object per line:
 
     {"phase": "device", ...}     card, power limit, torch and CUDA versions
     {"phase": "build", ...}      seconds to build the kernel library
+    {"phase": "gating_sweep"}    the gating kernel over E, k, T and dtype
     {"phase": "kernel_checks"}   every kernel against its plain version
     {"phase": "moe", ...}        moe_apply, kernel path against plain path
     {"phase": "mamba", ...}      one Mamba-2 layer, kernel scan against plain
@@ -74,9 +75,9 @@ SOURCES = {
 
 # The device kernels of csrc/, as the profiler names them.
 PORT_KERNEL_NAMES = (
-    "topk_gating_kernel", "histogram_block_kernel", "histogram_cluster_kernel",
-    "dispatch_gather_kernel", "dispatch_bytes_kernel", "ssd_scan_vec_kernel",
-    "ssd_scan_scalar_kernel",
+    "topk_gating_group_kernel", "topk_gating_warp_kernel", "histogram_block_kernel",
+    "histogram_cluster_kernel", "dispatch_gather_kernel", "dispatch_bytes_kernel",
+    "ssd_scan_vec_kernel", "ssd_scan_scalar_kernel",
 )
 
 
@@ -160,30 +161,67 @@ def bound(bytes_moved: int, operations: int):
 # --------------------------------------------------------------------- #
 
 
-def gating_case(torch, name, logits, k, timed):
+def gating_path(logits, k, general=False) -> str:
+    """Which kernel the wrapper launches for these logits: the path is
+    chosen in Python, from the shape and the base pointer."""
+    from repro_torch.kernels.topk_gating.kernel import PATH_GROUP, VECTOR_BYTES, launch_shape
+
+    aligned = not general and logits.data_ptr() % VECTOR_BYTES == 0
+    path, _ = launch_shape(logits.shape[1], k, logits.element_size(), aligned)
+    return "group" if path == PATH_GROUP else "warp"
+
+
+def gating_check(torch, name, logits, k, general=False):
+    """One call of the kernel against the plain version; returns the
+    largest weight error."""
     from repro_torch.kernels.topk_gating.kernel import topk_gating
     from repro_torch.kernels.topk_gating.ref import topk_gating_ref
 
-    w, idx = topk_gating(logits, k=k)
+    w, idx = topk_gating(logits, k=k, general=general)
     torch.cuda.synchronize()
     wr, idxr = topk_gating_ref(logits, k)
     check(w.dtype == torch.float32 and idx.dtype == torch.int32, f"{name}: types")
+    check(w.shape == wr.shape and idx.shape == idxr.shape, f"{name}: shapes")
     check(torch.equal(idx, idxr), f"{name}: top-k indices differ from the plain version")
     # rtol 1e-5 / atol 1e-6: float32 softmax sums taken in another order.
     check(torch.allclose(w, wr, rtol=1e-5, atol=1e-6), f"{name}: weights differ")
+    return float((w - wr).abs().max()) if w.numel() else 0.0
+
+
+def gating_case(torch, name, logits, k, timed, general=False):
+    from repro_torch.kernels.topk_gating.kernel import topk_gating
+    from repro_torch.kernels.topk_gating.ref import topk_gating_ref
+
     T, E = logits.shape
     out = {
         "kernel": "topk_gating", "case": name, "shape": [T, E, k],
         "dtype": str(logits.dtype).replace("torch.", ""),
-        "max_abs_err": float((w - wr).abs().max()) if T else 0.0,
+        "path": gating_path(logits, k, general),
+        "max_abs_err": gating_check(torch, name, logits, k, general),
     }
     if timed:
         nbytes = T * E * logits.element_size() + T * k * 8
         # exp, subtract, divide and the sum per element, k compare rounds.
         b_ms, by = bound(nbytes, T * E * (4 + k))
+        one = torch.zeros(1, device=logits.device)
+        timed_fns = {
+            "kernel_ms": lambda: topk_gating(logits, k=k),
+            # The warp path (one warp a row), on the same input.
+            "general_ms": lambda: topk_gating(logits, k=k, general=True),
+            # The floor any launch pays in this harness: one captured fill_.
+            "node_ms": lambda: one.fill_(1.0),
+        }
+        # Three interleaved rounds: a slow moment of the host (which starts
+        # each replay) then shows as one outlier, not as a difference.
+        runs = {key: [] for key in ("kernel_ms", "general_ms", "node_ms", "host_ms", "general_host_ms")}
+        for _ in range(3):
+            for key, fn in timed_fns.items():
+                runs[key].append(time_ms(torch, fn))
+            runs["host_ms"].append(host_ms(torch, timed_fns["kernel_ms"]))
+            runs["general_host_ms"].append(host_ms(torch, timed_fns["general_ms"]))
+        out.update({key: statistics.median(v) for key, v in runs.items()})
+        out["runs"] = runs
         out.update(
-            kernel_ms=time_ms(torch, lambda: topk_gating(logits, k=k)),
-            host_ms=host_ms(torch, lambda: topk_gating(logits, k=k)),
             plain_ms=time_ms(torch, lambda: topk_gating_ref(logits, k)),
             library_ms=None,   # no single call: softmax, topk and a division
             library_note="softmax+topk+renormalise (3 calls, no tie order): %.6f ms" % time_ms(
@@ -191,6 +229,71 @@ def gating_case(torch, name, logits, k, timed):
             bytes=nbytes, bound_ms=b_ms, bound_by=by,
         )
     return out
+
+
+def gating_sweep(torch, gen):
+    """The group path's shapes and their edges: E 8 to 256 in bfloat16 and
+    in float32 on the 1/64 grid, k 1, 2, 8 and min(E, 32), T on either side
+    of a warp's rows (a part-filled last warp).  Emits one line, one
+    [case, path, max_abs_err] a case, and returns the largest error."""
+    rows = []
+    for E in (8, 16, 32, 64, 128, 256):
+        for dtype in ("bfloat16", "float32"):
+            for k in sorted({1, 2, 8, min(E, 32)}):
+                for T in (1, 7, 8, 9, 8191, 8192):
+                    x = torch.randn((T, E), generator=gen, device="cuda")
+                    x = x.bfloat16() if dtype == "bfloat16" else torch.round(x * 64) / 64
+                    name = f"T{T}_E{E}_k{k}_{dtype}"
+                    rows.append([name, gating_path(x, k), gating_check(torch, name, x, k)])
+    paths = {p: sum(r[1] == p for r in rows) for p in ("group", "warp")}
+    emit({"phase": "gating_sweep", "cases": len(rows), "paths": paths, "rows": rows})
+    return max(r[2] for r in rows), paths
+
+
+def gating_edge_cases(torch, gen):
+    """Ties inside one lane's 16 bytes and across the lanes of a group,
+    rows where exp underflows to 0 for most experts (ties at 0, to the lower
+    index), and logits off the 16-byte grid, which the warp path must take;
+    each on both paths where the shape allows, with the expected picks of
+    the tie rows written out."""
+    from repro_torch.kernels.topk_gating.kernel import topk_gating
+
+    cases = []
+    ties = torch.zeros((5, 32), device="cuda")
+    ties[1, [3, 11, 27]] = 2.0          # across lanes (bf16: lanes 0, 1, 3)
+    ties[1, [1, 5]] = 1.0               # inside lane 0's 16 bytes
+    ties[2] = torch.arange(16, device="cuda").repeat_interleave(2).float()
+    ties[3, 31] = 1.0
+    ties[4, 8:16] = 3.0                 # one bf16 lane's whole vector
+    want = [[0, 1, 2, 3, 4, 5, 6, 7], [3, 11, 27, 1, 5, 0, 2, 4],
+            [30, 31, 28, 29, 26, 27, 24, 25], [31, 0, 1, 2, 3, 4, 5, 6],
+            [8, 9, 10, 11, 12, 13, 14, 15]]
+    # Underflow: most experts far below the row's maximum (exp gives 0 or a
+    # subnormal), a few live ones.
+    T, E = 4096, 32
+    deep = -150.0 + 50.0 * torch.rand((T, E), generator=gen, device="cuda")
+    live = torch.rand((T, E), generator=gen, device="cuda") < 0.08
+    under = torch.round(torch.where(live, torch.randn((T, E), generator=gen, device="cuda"), deep) * 64) / 64
+    under[0] = -200.0
+    under[0, 17] = 0.0                  # one live expert, 31 zeros
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for general in (False, True):
+            suffix = "_warp" if general else ""
+            cases.append(gating_case(torch, f"ties_E32_{tag}{suffix}", ties.to(dtype), 8, False, general))
+            _, idx = topk_gating(ties.to(dtype), k=8, general=general)
+            check(idx.tolist() == want, f"ties_E32_{tag}{suffix}: ties must go to the lower index")
+            cases.append(gating_case(torch, f"underflow_T{T}_E{E}_{tag}{suffix}", under.to(dtype), 8, False, general))
+        _, idx = topk_gating(under.to(dtype), k=8)
+        check(idx[0].tolist() == [17, 0, 1, 2, 3, 4, 5, 6], f"underflow_{tag}: zeros to the lower index")
+        # A view one element off the 16-byte grid: the warp path takes it.
+        flat = torch.randn(8192 * 32 + 1, generator=gen, device="cuda")
+        flat = flat.bfloat16() if dtype == torch.bfloat16 else torch.round(flat * 64) / 64
+        shifted = flat[1:].view(8192, 32)
+        case = gating_case(torch, f"misaligned_T8192_E32_{tag}", shifted, 8, False)
+        check(case["path"] == "warp", f"misaligned_{tag}: the group path took a misaligned row")
+        cases.append(case)
+    return cases
 
 
 def _softmax_topk(torch, logits, k):
@@ -400,6 +503,8 @@ def phase_kernel_checks(torch):
     for label, tokens in (("prefill", PREFILL_BATCH * PREFILL_LEN), ("decode", PREFILL_BATCH)):
         x, logits, flat_e, src, valid = main_path_plan(torch, gen, tokens, d, E, k, torch.bfloat16)
         cases.append(gating_case(torch, f"{label}_bf16", logits, k, timed=True))
+        check(cases[-1]["path"] == "group", f"gating {label}: the served shape must take the group path")
+        cases.append(gating_case(torch, f"{label}_bf16_warp", logits, k, False, general=True))
         cases.append(histogram_case(torch, label, flat_e, E, timed=True))
         served = label == "prefill"
         cases.append(dispatch_case(torch, f"{label}_bf16", x, src, valid, timed=True, controls=served))
@@ -413,6 +518,10 @@ def phase_kernel_checks(torch):
     def grid(t):
         return torch.round(t * 64) / 64
 
+    sweep_err, sweep_paths = gating_sweep(torch, gen)
+    cases.append({"kernel": "topk_gating", "case": "sweep", "paths": sweep_paths,
+                  "max_abs_err": sweep_err})
+    cases.extend(gating_edge_cases(torch, gen))
     cases.append(gating_case(torch, "T1000_E384_k8_f32", grid(randn(1000, 384)), 8, False))
     cases.append(gating_case(torch, "T1000_E384_k8_bf16", randn(1000, 384).bfloat16(), 8, False))
     cases.append(gating_case(torch, "T1_E32_k8", grid(randn(1, 32)), 8, False))
@@ -898,6 +1007,8 @@ def main() -> int:
             "library_timed": c.get("library_timed", "graph"),
             "host_ms": c["host_ms"], "shape": c["shape"], "bytes": c["bytes"],
         })
+        if kname == "topk_gating":
+            rows[-1].update(general_ms=c["general_ms"], node_ms=c["node_ms"])
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

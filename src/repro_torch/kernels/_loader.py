@@ -6,9 +6,9 @@ sm_90a in its own process, all started together, and one link step joins the
 objects into a library in a directory of its own under ``_build/``, which is
 removed again once the library is loaded.  Nothing built earlier is ever
 loaded, so the kernels that run are always those of the sources on disk.
-The library has a plain C interface and is bound with ``ctypes``: pointers
-come from ``Tensor.data_ptr()``, the stream from
-``torch.cuda.current_stream()``.  A failed build raises; there is nothing
+The library has a plain C interface and is bound with ``ctypes`` once, when
+it is loaded: pointers come from ``Tensor.data_ptr()``, the stream is the
+device's current one.  A failed build raises; there is nothing
 to fall back to.
 """
 
@@ -22,7 +22,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
 
 _HERE = Path(__file__).resolve().parent
 CSRC_DIR = _HERE / "csrc"
@@ -34,14 +34,16 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: The library's entry points by name, bound once when it is loaded.
+_entry: Dict[str, Callable[..., int]] = {}
 #: Seconds this process's build took (0.0 before it).
 last_build_seconds: float = 0.0
 
 _c_ptr = ctypes.c_void_p
 _SIGNATURES = {
     "dyskew_topk_gating": (
-        _c_ptr, _c_ptr, _c_ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, _c_ptr,
+        _c_ptr, _c_ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _c_ptr,
     ),
     "dyskew_load_histogram": (
         _c_ptr, _c_ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -129,6 +131,7 @@ def lib(verbose: bool = False) -> ctypes.CDLL:
                 fn = getattr(loaded, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+                _entry[name] = fn
             _lib = loaded
         return _lib
 
@@ -140,11 +143,19 @@ def launch(name: str, device, *args) -> None:
     synchronisation."""
     import torch
 
-    fn = getattr(lib(), name)
-    if device.index is None or device.index == torch.cuda.current_device():
-        code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    fn = _entry.get(name)
+    if fn is None:
+        lib()
+        fn = _entry[name]
+    # The raw handle of the device's current stream, as
+    # ``torch.cuda.current_stream().cuda_stream`` gives it but without
+    # building a Stream object on every call, which was the largest piece
+    # of a small launch's host time.
+    current = torch.cuda.current_device()
+    if device.index is None or device.index == current:
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(current))
     else:
         with torch.cuda.device(device):
-            code = fn(*args, torch.cuda.current_stream().cuda_stream)
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")

@@ -262,7 +262,7 @@ def _csrc_constant(source: str, name: str) -> int:
 
 
 class TestLaunchShapes:
-    """The launch shapes the wrappers hand the two redesigned kernels are
+    """The launch shapes the wrappers hand the redesigned kernels are
     computed in Python, so that they can be checked here without a card."""
 
     @pytest.mark.parametrize("E", [1, 32, 12288])
@@ -303,6 +303,75 @@ class TestLaunchShapes:
     def test_dispatch_grid_matches_the_source(self):
         assert _csrc_constant("dispatch.cu", "kWarpsPerBlock") == t_dispatch_kernel.WARPS_PER_BLOCK
         assert _csrc_constant("dispatch.cu", "kMinBlocksPerSm") == t_dispatch_kernel.BLOCKS_PER_SM
+
+    @pytest.mark.parametrize("k", [1, 2, 3, 8, 32])
+    @pytest.mark.parametrize("element_size", [2, 4])
+    @pytest.mark.parametrize("E", [4, 5, 8, 16, 32, 64, 100, 128, 256, 384, 512])
+    def test_gating_launch_shape(self, E, element_size, k):
+        g = t_gating_kernel
+        whole_vectors = {16 << i for i in range(6)}   # 1, 2, 4, ..., 32 vectors
+        for aligned in (True, False):
+            path, lanes = g.launch_shape(E, k, element_size, aligned)
+            assert 32 % lanes == 0
+            group = (aligned and k in (1, 2, 4, 8)
+                     and E * element_size in whole_vectors)
+            if group:
+                # G lanes of one 16-byte vector each hold the row exactly.
+                assert path == g.PATH_GROUP
+                assert lanes * (16 // element_size) == E
+            else:
+                # One warp a row, at most 16 values a lane (the source's
+                # largest VPL).
+                assert (path, lanes) == (g.PATH_WARP, 32)
+                assert lanes * 16 >= E
+
+    def test_gating_constants_match_the_source(self):
+        import re
+
+        from repro_torch.kernels import _loader
+        g = t_gating_kernel
+        assert _csrc_constant("topk_gating.cu", "kWarp") == g.WARP
+        assert _csrc_constant("topk_gating.cu", "kVectorBytes") == g.VECTOR_BYTES
+        assert _csrc_constant("topk_gating.cu", "kMaxGroupK") == max(g.GROUP_KS)
+        assert _csrc_constant("topk_gating.cu", "kPathWarp") == g.PATH_WARP
+        assert _csrc_constant("topk_gating.cu", "kPathGroup") == g.PATH_GROUP
+        assert _csrc_constant("topk_gating.cu", "kMaxExperts") == g.MAX_EXPERTS
+        assert _csrc_constant("topk_gating.cu", "kMaxK") == g.MAX_K
+        # The instantiations the entry point switches over: every k of
+        # GROUP_KS, and G = 1, 2, 4, ..., 32.
+        text = (_loader.CSRC_DIR / "topk_gating.cu").read_text()
+
+        def value(tok):
+            return int(tok) if tok.isdigit() else _csrc_constant("topk_gating.cu", tok)
+
+        ks = {value(t) for t in re.findall(r"launch_group<T, G, (\w+)>", text)}
+        lanes = {value(t) for t in re.findall(r"launch_group_k<T, (\w+)>", text)}
+        assert ks == set(g.GROUP_KS)
+        assert lanes == {1, 2, 4, 8, 16, 32}
+
+    @pytest.mark.parametrize("k", [1, 2, 3, 4, 8, 32])
+    @pytest.mark.parametrize("T", [0, 1, 7, 8191])
+    def test_gating_output_views(self, T, k):
+        """The wrapper's one allocation, on the CPU: the kernel writes the
+        weights' bits to words [0, T*k) and the ids to [T*k, 2*T*k)."""
+        buf, w, idx = t_gating_kernel.output_views(T, k, "cpu")
+        assert buf.shape == (2, T, k) and buf.dtype == torch.int32
+        assert w.shape == (T, k) and w.dtype == torch.float32 and w.is_contiguous()
+        assert idx.shape == (T, k) and idx.dtype == torch.int32 and idx.is_contiguous()
+        assert w.data_ptr() == buf.data_ptr()
+        assert idx.data_ptr() == buf.data_ptr() + T * k * 4
+        rng = np.random.default_rng(T * 100 + k)
+        want_w = rng.random((T, k), dtype=np.float32)
+        want_i = rng.integers(0, 512, (T, k), dtype=np.int32)
+        words = buf.view(-1).numpy()
+        words[: T * k] = want_w.reshape(-1).view(np.int32)
+        words[T * k:] = want_i.reshape(-1)
+        np.testing.assert_array_equal(w.numpy(), want_w)
+        np.testing.assert_array_equal(idx.numpy(), want_i)
+        if k in t_gating_kernel.GROUP_KS:
+            # The group path stores min(k, 4) words at once: the ids' offset
+            # keeps that alignment for every T (the source checks it too).
+            assert (T * k * 4) % (4 * min(k, 4)) == 0
 
     @pytest.mark.parametrize("name", sorted(tk._MODULES))
     def test_signature_matches_wrapper_and_source(self, name):
