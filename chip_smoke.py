@@ -13,6 +13,15 @@ prompts of 1024 tokens and 32 greedy decode steps through
 whose 24 MoE layers run the three dispatch kernels, and ``mamba2-1.3b``,
 whose 48 Mamba-2 layers run the state-scan kernel in every prefill.
 
+Then it holds the card against the host on the DySkew link and the
+Snowpark UDF simulator, in one process: ``AdaptiveLink.step`` and every
+planner at 32 × 4,096 and 1,024 × 1,048,576 items (two card runs must be
+identical and equal to ``device="cpu"``), and three simulator runs, each on
+the card and on the host, whose ``QueryResult``s (rtol 1e-9, counts
+exactly) and per-tick distribute masks must be equal: the full Fig. 4
+TPCx-BB suite on 4 nodes, 256 open-loop tenants on batched ticks, and a
+worker crash beside one pipeline scenario.
+
 Standard output is one JSON object per line:
 
     {"phase": "device", ...}     card, power limit, torch and CUDA versions
@@ -23,6 +32,8 @@ Standard output is one JSON object per line:
     {"phase": "mamba", ...}      one Mamba-2 layer, kernel scan against plain
     {"phase": "serve", ...}      per model: rates, memory, launches
     {"phase": "profile", ...}    only with --profile: device time by kernel
+    {"phase": "link", ...}       AdaptiveLink.step and the planners, card against host
+    {"phase": "sim", ...}        Fig. 4, 256 tenants, faults, pipeline, card against host
     {"kernels": [...]}           per kernel: time, bound, launches, error
     <name>, <power limit>        as nvidia-smi prints them
     {"ok": true, "device": {...}}
@@ -939,6 +950,485 @@ def phase_profile(torch, served, decode_steps: int = 4):
 
 
 # --------------------------------------------------------------------- #
+# Phase 7: the adaptive link and its planners, card against host
+# --------------------------------------------------------------------- #
+
+# (instances, items): the paper's 4-node cluster of 8 interpreters, and
+# 128 such nodes.
+LINK_SIZES = ((32, 4096), (1024, 1 << 20))
+LINK_TICKS = 6
+LPT_ITEMS = 4096
+HOST = "cpu"
+
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def link_inputs(n: int, items: int, seed: int):
+    """LINK_TICKS ticks of items: Zipf-skewed ownership (a quarter of the
+    items on producer 0), log-normal costs in seconds, sizes in bytes,
+    2 % padding."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ticks = []
+    for _ in range(LINK_TICKS):
+        producer = np.minimum(rng.zipf(1.3, items) - 1, n - 1).astype(np.int32)
+        costs = rng.lognormal(-7.0, 1.5, items).astype(np.float32)
+        sizes = rng.integers(64, 4096, items).astype(np.float32)
+        valid = rng.random(items) < 0.98
+        ticks.append((costs, sizes, producer, valid))
+    return ticks
+
+
+def run_link(torch, policy, n, ticks, device):
+    """AdaptiveLink.step over the ticks on ``device``: the plans and the
+    state after each step (on the host), and each step's host time with
+    the device drained before and after."""
+    from repro_torch.core.adaptive_link import AdaptiveLink, AdaptiveLinkConfig
+    from repro_torch.core.types import DySkewConfig
+
+    link = AdaptiveLink(AdaptiveLinkConfig(dyskew=DySkewConfig(policy=policy), num_instances=n),
+                        device=device)
+    state = link.init_state()
+    steps, ms = [], []
+    for arrays in ticks:
+        tensors = [torch.from_numpy(a).to(device) for a in arrays]
+        sync(torch, device)
+        t0 = time.perf_counter()
+        state, plan = link.step(state, *tensors)
+        sync(torch, device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        host_state = {k: (v.cpu() if not isinstance(v, dict) else {m: x.cpu() for m, x in v.items()})
+                      for k, v in state.items()}
+        steps.append((plan.dest.cpu(), plan.distribute.cpu(), float(plan.est_bytes_moved),
+                      float(plan.est_time_saved), host_state))
+    return steps, ms
+
+
+def same_link_run(torch, a, b, where, exact_estimates):
+    for t, (sa, sb) in enumerate(zip(a, b)):
+        at = f"{where} tick {t}"
+        check(torch.equal(sa[0], sb[0]), f"{at}: dest")
+        check(torch.equal(sa[1], sb[1]), f"{at}: distribute")
+        for i, name in ((2, "est_bytes_moved"), (3, "est_time_saved")):
+            ok = sa[i] == sb[i] if exact_estimates else abs(sa[i] - sb[i]) <= 1e-6 * abs(sb[i])
+            check(ok, f"{at}: {name} {sa[i]!r} against {sb[i]!r}")
+        for key, v in sa[4].items():
+            if isinstance(v, dict):
+                for m, x in v.items():
+                    check(torch.equal(x, sb[4][key][m]), f"{at}: link metric {m}")
+            else:
+                check(torch.equal(v, sb[4][key]), f"{at}: link {key}")
+
+
+def planner_runs(torch, n, items, card, seed):
+    """Every planner at (n, items), with and without ``eligible`` and
+    ``base_loads``: twice on the card, once on the host, all equal."""
+    import numpy as np
+
+    from repro_torch.core import redistribution as rd
+
+    rng = np.random.default_rng(seed)
+    costs = rng.lognormal(-7.0, 1.5, items).astype(np.float32)
+    costs[rng.random(items) < 0.2] = 0.0          # ties, as non-moving items have
+    base = np.round(rng.uniform(0.0, 4.0, n), 2).astype(np.float32)
+    eligible = rng.random(n) < 0.75
+    cases, lpt_ms = 0, None
+    for use_base in (False, True):
+        for use_elig in (False, True):
+            def args(device):
+                kw = {}
+                if use_base:
+                    kw["base_loads"] = torch.from_numpy(base).to(device)
+                if use_elig:
+                    kw["eligible"] = torch.from_numpy(eligible).to(device)
+                return torch.from_numpy(costs).to(device), kw
+            planners = ["zigzag"] + (["lpt_greedy"] if items <= LPT_ITEMS else [])
+            for name in planners:
+                outs = []
+                for device in (card, card, HOST):
+                    c, kw = args(device)
+                    sync(torch, device)
+                    t0 = time.perf_counter()
+                    dest, loads = getattr(rd, name)(c, n, **kw)
+                    span = rd.makespan(dest, c, n)
+                    sync(torch, device)
+                    if name == "lpt_greedy" and device == card and not use_base and not use_elig:
+                        lpt_ms = (time.perf_counter() - t0) * 1e3
+                    outs.append((dest.cpu(), loads.cpu(), span.cpu()))
+                for o in outs[1:]:
+                    for x, y in zip(outs[0], o):
+                        check(torch.equal(x, y), f"{name} n={n} items={items} base={use_base} "
+                                                 f"eligible={use_elig}: card runs or card and host differ")
+                cases += 1
+            rr = [rd.round_robin(items, n, 3, args(d)[1].get("eligible"), device=d).cpu()
+                  for d in (card, card, HOST)]
+            check(torch.equal(rr[0], rr[1]) and torch.equal(rr[0], rr[2]), f"round_robin n={n}")
+            cases += 1
+    return cases, lpt_ms
+
+
+def order_controls(torch, card):
+    """Why the link sums through ``ordered_sums``: how many results of
+    PyTorch's own sums and divisions on ``card`` differ from the host's
+    float32 in index order, beside the port's, which must differ in none."""
+    import numpy as np
+
+    from repro_torch.core import ordered_sums as osum
+
+    rng = np.random.default_rng(0)
+    n, items = LINK_SIZES[1]
+    index = np.minimum(rng.zipf(1.3, items) - 1, n - 1)
+    values = (rng.standard_normal(items) * 10 ** rng.uniform(-3, 3, items)).astype(np.float32)
+    in_order = np.zeros(n, np.float32)
+    np.add.at(in_order, index, values)            # unbuffered: one item at a time, in order
+    idx, val = torch.from_numpy(index).to(card), torch.from_numpy(values).to(card)
+    zeros = torch.zeros(n, dtype=torch.float32, device=card)
+    x = rng.integers(0, 1000, 100_000).astype(np.float32)
+    rows = rng.standard_normal((4096, 8)).astype(np.float32)
+    rows_in_order = rows[:, 0].copy()
+    for i in range(1, rows.shape[1]):
+        rows_in_order += rows[:, i]
+    xt, rt = torch.from_numpy(x).to(card), torch.from_numpy(rows).to(card)
+
+    def differ(t, want):
+        return int((t.cpu().numpy() != want).sum())
+
+    out = {
+        "slots": n, "items": items, "quotients": x.size, "rows_of_8": rows.shape[0],
+        "scatter_add_differs": differ(osum.scatter_add(zeros, idx, val), in_order),
+        "index_put_accumulate_differs": differ(zeros.clone().index_put_((idx,), val, accumulate=True), in_order),
+        "index_add_differs": differ(zeros.clone().index_add_(0, idx, val), in_order),
+        "div_differs": differ(osum.div(xt, 31), x / np.float32(31)),
+        "div_by_python_number_differs": differ(xt / 31, x / np.float32(31)),
+        "sum_last_differs": differ(osum.sum_last(rt), rows_in_order),
+        "sum_dim_differs": differ(rt.sum(dim=-1), rows_in_order),
+    }
+    for key in ("scatter_add_differs", "div_differs", "sum_last_differs"):
+        check(out[key] == 0, f"ordered sums on {card}: {key} = {out[key]}")
+    return out
+
+
+def phase_link(torch, card="cuda"):
+    import statistics as st
+
+    from repro_torch.core.types import Policy
+
+    t_start = time.perf_counter()
+    sizes = []
+    for n, items in LINK_SIZES:
+        ticks = link_inputs(n, items, seed=n)
+        row = {"instances": n, "items": items, "ticks": LINK_TICKS}
+        for policy in (Policy.EAGER_SNOWPARK, Policy.LATE):
+            first, ms_card = run_link(torch, policy, n, ticks, card)
+            again, _ = run_link(torch, policy, n, ticks, card)
+            host, ms_host = run_link(torch, policy, n, ticks, HOST)
+            same_link_run(torch, first, again, f"link {policy.name} n={n}: two card runs", True)
+            same_link_run(torch, first, host, f"link {policy.name} n={n}: card against host", False)
+            row[policy.name] = {
+                "host_ms_card": st.median(ms_card), "host_ms_card_first": ms_card[0],
+                "host_ms_cpu": st.median(ms_host),
+                "distributing_ticks": sum(bool(s[1].any()) for s in first),
+                "items_moved": [int((s[0] != torch.from_numpy(t[2])).sum()) for s, t in zip(first, ticks)],
+            }
+        row["planner_cases"], row["lpt_greedy_ms"] = planner_runs(torch, n, items, card, seed=n + 1)
+        sizes.append(row)
+    check(sizes[0]["EAGER_SNOWPARK"]["distributing_ticks"] == LINK_TICKS, "link: an eager link must distribute")
+    check(sizes[0]["LATE"]["distributing_ticks"] > 0, "link: a late link must fire on this skew")
+    emit({"phase": "link", "device": card, "sizes": sizes, "controls": order_controls(torch, card),
+          "card_runs_identical": True, "card_equals_host": True,
+          "seconds": time.perf_counter() - t_start})
+
+
+# --------------------------------------------------------------------- #
+# Phase 8: the Snowpark UDF simulator, card against host
+# --------------------------------------------------------------------- #
+
+SIM_RTOL = 1e-9
+
+
+class TickLog:
+    """Wraps the simulators' two tick drivers while in use: keeps every
+    distribute mask and the host time of each call (which ends when the
+    mask is back on the host)."""
+
+    def __init__(self):
+        from repro_torch.sim import batched_link, engine
+
+        self.classes = (engine.AdaptiveLinkSim, batched_link.BatchedLinkSim)
+
+    def __enter__(self):
+        self.masks = {c.__name__: [] for c in self.classes}
+        self.seconds = {c.__name__: 0.0 for c in self.classes}
+        self.saved = [c.tick for c in self.classes]
+        for cls, orig in zip(self.classes, self.saved):
+            def tick(obj, *args, _orig=orig, _name=cls.__name__, **kw):
+                t0 = time.perf_counter()
+                out = _orig(obj, *args, **kw)
+                self.seconds[_name] += time.perf_counter() - t0
+                self.masks[_name].append(out.copy())
+                return out
+            cls.tick = tick
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig in zip(self.classes, self.saved):
+            cls.tick = orig
+        return False
+
+    def ms_per_tick(self, name=None):
+        names = [name] if name else list(self.masks)
+        count = sum(len(self.masks[k]) for k in names)
+        return sum(self.seconds[k] for k in names) / count * 1e3 if count else None
+
+
+def same_masks(a: TickLog, b: TickLog, where: str) -> int:
+    import numpy as np
+
+    total = 0
+    for name, ma in a.masks.items():
+        mb = b.masks[name]
+        check(len(ma) == len(mb), f"{where}: {len(ma)} against {len(mb)} {name} ticks")
+        for i, (x, y) in enumerate(zip(ma, mb)):
+            check(np.array_equal(x, y), f"{where}: distribute mask of {name} tick {i}")
+        total += len(ma)
+    return total
+
+
+def same_results(a, b, where: str) -> None:
+    import numpy as np
+
+    check(len(a) == len(b), f"{where}: result count")
+    for i, (x, y) in enumerate(zip(a, b)):
+        for f in ("latency", "utilization", "bytes_moved_remote", "decision_overhead"):
+            check(bool(np.isclose(getattr(x, f), getattr(y, f), rtol=SIM_RTOL, atol=0.0)),
+                  f"{where} {i}: {f} {getattr(x, f)!r} against {getattr(y, f)!r}")
+        check(bool(np.allclose(x.per_worker_busy, y.per_worker_busy, rtol=SIM_RTOL, atol=0.0)),
+              f"{where} {i}: per_worker_busy")
+        for f in ("num_ticks", "rows_redistributed", "redistribution_applied", "preempted_rows"):
+            check(getattr(x, f) == getattr(y, f), f"{where} {i}: {f}")
+
+
+def on_both(torch, card, run, where):
+    """``run(device)`` on the card, then on the host; masks and results
+    held equal.  Returns the card's output, both logs and both walls."""
+    outs, logs, walls = [], [], []
+    for device in (card, HOST):
+        with TickLog() as log:
+            sync(torch, device)
+            t0 = time.perf_counter()
+            out = run(device)
+            walls.append(time.perf_counter() - t0)
+        outs.append(out)
+        logs.append(log)
+    ticks = same_masks(logs[0], logs[1], where)
+    return outs, logs, walls, ticks
+
+
+def fig4_run(device):
+    from repro_torch.sim.engine import ClusterConfig, Simulator
+    from repro_torch.sim.replay import dyskew_strategy, legacy_strategy
+    from repro_torch.sim.workload import generate_query, tpcxbb_suite
+
+    cluster = ClusterConfig(num_nodes=4)
+    out = []
+    for i, prof in enumerate(tpcxbb_suite()):
+        batches = generate_query(prof, cluster.num_workers, seed=100 + i)
+        legacy = Simulator(cluster, legacy_strategy(prof), seed=i, device=device).run_query(batches)
+        dyskew = Simulator(cluster, dyskew_strategy(prof), seed=i, device=device).run_query(batches)
+        out.append((prof.name, legacy, dyskew))
+    return out
+
+
+MANY_TENANTS = 256
+MANY_TICK_S = 8e-3
+
+
+def many_tenants_run(device):
+    from repro_torch.core.types import DySkewConfig, Policy, SkewModelKind
+    from repro_torch.sim.engine import ClusterConfig, MultiQuerySimulator, StrategyConfig
+    from repro_torch.sim.replay import open_loop_rate, open_loop_tenants
+    from repro_torch.sim.workload import ArrivalProcess, many_tenants_suite
+
+    cluster = ClusterConfig(num_nodes=4)
+    specs = many_tenants_suite(MANY_TENANTS, seed=71)
+    strategy = StrategyConfig(
+        kind="dyskew",
+        dyskew=DySkewConfig(policy=Policy.LATE, skew_model=SkewModelKind.IDLE_TIME, n_strikes=2),
+        tick_interval=MANY_TICK_S,
+    )
+    proc = ArrivalProcess(kind="poisson", rate=open_loop_rate([p for p, _ in specs], cluster, load=0.7))
+    tenants = open_loop_tenants(specs, cluster, lambda prof: strategy, proc, MANY_TENANTS, seed=0,
+                                grid_align=MANY_TICK_S)
+    sim = MultiQuerySimulator(cluster, device=device)
+    return sim.run(tenants), dict(sim.last_event_counts)
+
+
+def fault_run(device):
+    from repro_torch.core.admission import FairShareConfig
+    from repro_torch.runtime.fault_tolerance import FaultConfig
+    from repro_torch.sim.engine import ClusterConfig, MultiQuerySimulator, TenantQuery
+    from repro_torch.sim.faults import CRASH, FaultEvent, FaultSchedule
+    from repro_torch.sim.replay import dyskew_strategy, scan_arrival_gap
+    from repro_torch.sim.workload import QueryProfile, generate_query
+
+    cluster = ClusterConfig(num_nodes=2)
+    prof = QueryProfile(name="t", n_rows=800, mean_row_cost=1.2e-3, cost_sigma=0.8,
+                        partition_alpha=0.6, hot_fraction=0.1)
+    gap = scan_arrival_gap(prof, cluster)
+    tenants = [TenantQuery(f"t{i}", generate_query(prof, cluster.num_workers, seed=3 + i),
+                           dyskew_strategy(prof), 0.02 * i, gap) for i in range(3)]
+    sim = MultiQuerySimulator(
+        cluster, fair_share=FairShareConfig(quantum_rows=64.0, heavy_row_bytes=1e6),
+        faults=FaultSchedule(events=(FaultEvent(time=0.05, kind=CRASH, worker=1),)),
+        fault_cfg=FaultConfig(heartbeat_interval=0.02, missed_beats_dead=2, n_strikes=3,
+                              slope_window=8, min_hosts=2),
+        device=device,
+    )
+    return sim.run(tenants), dict(sim.last_fault_stats)
+
+
+def pipeline_run(device):
+    from repro_torch.sim.engine import ClusterConfig
+    from repro_torch.sim.replay import run_pipeline_ab
+    from repro_torch.sim.workload import pipeline_suite
+
+    name, stages, inputs = pipeline_suite(quick=True)[0]
+    return name, run_pipeline_ab(stages, inputs, ClusterConfig(num_nodes=4), seed=13, device=device)
+
+
+def device_work_of(torch, fn):
+    """Kernels and copies one call of ``fn`` puts on the card, from
+    torch.profiler (None where the trace shows no device events), and the
+    synchronising calls PyTorch reports for it."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels += 1
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    if kernels == 0:
+        return {"kernels": None, "copies": None, "syncs": syncs}
+    return {"kernels": kernels, "copies": copies, "syncs": syncs}
+
+
+def tick_launches(torch):
+    """Device work of one tick of each driver, and of one link step, at the
+    sizes the simulator and the link phase use."""
+    import numpy as np
+
+    from repro_torch.core.adaptive_link import AdaptiveLink, AdaptiveLinkConfig
+    from repro_torch.core.types import DySkewConfig, Policy, SkewModelKind
+    from repro_torch.sim.batched_link import BatchedLinkSim
+    from repro_torch.sim.engine import AdaptiveLinkSim
+
+    rng = np.random.default_rng(5)
+    cfg = DySkewConfig(policy=Policy.LATE, skew_model=SkewModelKind.IDLE_TIME, n_strikes=2)
+    n, T = 32, MANY_TENANTS
+
+    def inputs(shape):
+        rows = rng.poisson(3.0, shape).astype(np.float64)
+        return rows, rows * 1e-3, rows, np.full(shape, 2048.0), rng.random(shape) < 0.3
+
+    solo = AdaptiveLinkSim(cfg, n, "cuda")
+    one = inputs((n,))
+    batched = BatchedLinkSim(cfg, n, T, "cuda")
+    many = inputs((T, n))
+    active = np.ones(T, bool)
+    link = AdaptiveLink(AdaptiveLinkConfig(dyskew=DySkewConfig(policy=Policy.EAGER_SNOWPARK),
+                                           num_instances=n), device="cuda")
+    state = link.init_state()
+    costs, sizes, producer, valid = (torch.from_numpy(a).cuda() for a in link_inputs(n, LINK_SIZES[0][1], 9)[0])
+    return {
+        "tick_n32": device_work_of(torch, lambda: solo.tick(*one)),
+        "batched_tick_256x32": device_work_of(torch, lambda: batched.tick(*many, active)),
+        "link_step_32x4096": device_work_of(torch, lambda: link.step(state, costs, sizes, producer, valid)),
+    }
+
+
+def phase_sim(torch, card="cuda"):
+    from repro_torch.sim.replay import improvement
+
+    t_start = time.perf_counter()
+    row = {"phase": "sim", "device": card}
+
+    # 1. Fig. 4: the TPCx-BB suite, legacy and DySkew arms, 4 nodes.
+    outs, logs, walls, ticks = on_both(torch, card, fig4_run, "fig4")
+    for (qa, la, da), (qb, lb, db) in zip(*outs):
+        check(qa == qb, "fig4: query order")
+        same_results([la, da], [lb, db], f"fig4 {qa}")
+    row["fig4"] = {
+        "queries": len(outs[0]), "link_ticks": ticks,
+        "improvement_virtual": {q: improvement(lg.latency, dk.latency) for q, lg, dk in outs[0]},
+        "dyskew_latency_virtual_s": {q: dk.latency for q, _, dk in outs[0] if q in ("q10", "q19")},
+        "legacy_latency_virtual_s": {q: lg.latency for q, lg, _ in outs[0] if q in ("q10", "q19")},
+        "dyskew_ticks": {q: dk.num_ticks for q, _, dk in outs[0] if q in ("q10", "q19")},
+        "wall_s_card": walls[0], "wall_s_cpu": walls[1],
+        # A lone tenant rides a one-row batched group: every tick is (1, 32).
+        "ms_per_tick_card": logs[0].ms_per_tick(),
+        "ms_per_tick_cpu": logs[1].ms_per_tick(),
+    }
+
+    # 2. 256 open-loop tenants on one warehouse, grid-aligned: batched ticks.
+    outs, logs, walls, ticks = on_both(torch, card, many_tenants_run, "tenants")
+    same_results(outs[0][0], outs[1][0], "tenants")
+    check(outs[0][1] == outs[1][1], "tenants: event counts")
+    gticks = outs[0][1]["gtick"]
+    check(gticks == len(logs[0].masks["BatchedLinkSim"]) > 0, "tenants: batched ticks")
+    check(all(m.shape == (MANY_TENANTS, 32) for m in logs[0].masks["BatchedLinkSim"]), "tenants: tick shape")
+    row["tenants"] = {
+        "tenants": MANY_TENANTS, "batched_ticks": gticks, "per_tenant_ticks": outs[0][1]["tick"],
+        "ms_per_batched_tick_card": logs[0].ms_per_tick("BatchedLinkSim"),
+        "ms_per_batched_tick_cpu": logs[1].ms_per_tick("BatchedLinkSim"),
+        "wall_s_card": walls[0], "wall_s_cpu": walls[1],
+        "mean_latency_virtual_s": sum(r.latency for r in outs[0][0]) / len(outs[0][0]),
+    }
+
+    # 3. A worker crash mid-query, and one pipeline scenario.
+    outs, logs, walls, ticks = on_both(torch, card, fault_run, "faults")
+    same_results(outs[0][0], outs[1][0], "faults")
+    check(repr(outs[0][1]) == repr(outs[1][1]), "faults: fault statistics")
+    stats = outs[0][1]
+    check(stats["detections"] >= 1 and stats["unrecovered_rows"] == 0, "faults: crash not recovered")
+    row["faults"] = {"link_ticks": ticks, "detections": stats["detections"],
+                     "recovered_rows": sum(stats["recovered_rows"]),
+                     "wall_s_card": walls[0], "wall_s_cpu": walls[1]}
+    outs, logs, walls, ticks = on_both(torch, card, pipeline_run, "pipeline")
+    (name, ab_card), (_, ab_host) = outs
+    check(repr(ab_card) == repr(ab_host), "pipeline: summaries")
+    row["pipeline"] = {"scenario": name, "arms": sorted(ab_card), "link_ticks": ticks,
+                       "makespan_virtual_s": {k: v["makespan"] for k, v in ab_card.items()},
+                       "wall_s_card": walls[0], "wall_s_cpu": walls[1]}
+
+    if torch.device(card).type == "cuda":
+        row["device_work"] = tick_launches(torch)
+    row["seconds"] = time.perf_counter() - t_start
+    emit(row)
+
+
+# --------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -990,6 +1480,8 @@ def main() -> int:
                 phase_profile(torch, served)
             del served, got
             torch.cuda.empty_cache()
+        phase_link(torch)
+        phase_sim(torch)
 
     rows = []
     prefill_case = {"topk_gating": "prefill_bf16", "load_histogram": "prefill",

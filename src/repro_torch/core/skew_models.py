@@ -10,6 +10,10 @@ The N-strikes framework wraps any model: skew must be detected N consecutive
 ticks before a redistribution transition is allowed, which suppresses
 transient fluctuations (paper: 'reduces sensitivity to transient
 fluctuations and avoids false positives').
+
+Every float sum adds in index order and every division by a count is
+rounded once (``ordered_sums``), as XLA does on the host for these short
+axes, so the card, the host and ``repro`` reach the same bits.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.ordered_sums import div, sum_all, sum_last
 from repro_torch.core.types import DySkewConfig, SkewModelKind
 
 
@@ -30,8 +35,8 @@ def _mean_of_others(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[-1]
     if n <= 1:
         return torch.full_like(x, float("inf"))
-    total = torch.sum(x, dim=-1, keepdim=True)
-    return (total - x) / (n - 1)
+    total = sum_last(x, keepdim=True)
+    return div(total - x, n - 1)
 
 
 def row_percentage_skew(metrics: Dict[str, torch.Tensor], theta: float) -> torch.Tensor:
@@ -63,7 +68,7 @@ def idle_time_skew(
     if n <= 1:
         return torch.zeros_like(idle)
     idle_f = idle.to(torch.float32)
-    total_idle = torch.sum(idle_f, dim=-1, keepdim=True)
+    total_idle = sum_last(idle_f, keepdim=True)
     idle_siblings = total_idle - idle_f                   # excludes self
     threshold = idle_sibling_frac * (n - 1)
     busy = torch.logical_not(idle)
@@ -78,10 +83,10 @@ def sync_slope(window: torch.Tensor) -> torch.Tensor:
     """
     w = window.shape[-1]
     t = torch.arange(w, dtype=torch.float32, device=window.device)
-    t = t - torch.mean(t)
-    denom = torch.sum(t * t)
-    centered = window - torch.mean(window, dim=-1, keepdim=True)
-    return torch.sum(centered * t, dim=-1) / torch.clamp(denom, min=1e-9)
+    t = t - div(sum_all(t), w)
+    denom = sum_all(t * t)
+    centered = window - div(sum_last(window, keepdim=True), w)
+    return sum_last(centered * t) / torch.clamp(denom, min=1e-9)
 
 
 def sync_time_slope_skew(metrics: Dict[str, torch.Tensor], theta: float) -> torch.Tensor:
