@@ -22,6 +22,16 @@ exactly) and per-tick distribute masks must be equal: the full Fig. 4
 TPCx-BB suite on 4 nodes, 256 open-loop tenants on batched ticks, and a
 worker crash beside one pipeline scenario.
 
+Last it trains: the DySkew data pipeline's 64 batches of 8 × 1024 tokens on
+8 data-parallel shards, card against host; the serving engine's scheduler
+(``launch/serve.py``'s defaults and one fair-share, deadline-aware
+configuration), card against host; and ``granite-moe-1b-a400m`` at full
+width and depth through ``train/loop.py::train`` (AdamW, remat, 4 steps of
+8 × 1024 tokens fed by the pipeline), after step 1's gradients through the
+kernels have been held against those through the plain versions and
+against a second kernel run; then the same 4 steps of the reduced config on
+the card and on the host, and a checkpoint round trip on the card.
+
 Standard output is one JSON object per line:
 
     {"phase": "device", ...}     card, power limit, torch and CUDA versions
@@ -34,6 +44,11 @@ Standard output is one JSON object per line:
     {"phase": "profile", ...}    only with --profile: device time by kernel
     {"phase": "link", ...}       AdaptiveLink.step and the planners, card against host
     {"phase": "sim", ...}        Fig. 4, 256 tenants, faults, pipeline, card against host
+    {"phase": "data_pipeline"}   DataPipeline batches and link plans, card against host
+    {"phase": "serving_engine"}  ServingEngine results, card against host
+    {"phase": "train", ...}      step 1 kernel against plain, 4 full steps, reduced
+                                 steps card against host, checkpoint round trip
+    {"phase": "profile", ...}    with --profile, also one traced train step
     {"kernels": [...]}           per kernel: time, bound, launches, error
     <name>, <power limit>        as nvidia-smi prints them
     {"ok": true, "device": {...}}
@@ -894,59 +909,66 @@ def phase_serve(torch, served):
     return counts
 
 
-def phase_profile(torch, served, decode_steps: int = 4):
-    """Optional: where the device time of one prefill and of a few decode
-    steps goes, by kernel name and by the PyTorch operator that launched
-    the kernel, and how much of the wall time the card was busy at all."""
+def profiled(torch, arch, what, steps, window):
+    """Trace ``window()`` with torch.profiler and emit where its device time
+    went, by kernel name and by the PyTorch operator that launched the
+    kernel, and how much of the wall time the card was busy at all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, by_op = [], []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev_us <= 0:
+            continue
+        # The busy time sums the device's own events only; a host
+        # operator's row repeats the time of the kernels it launched
+        # itself, and names the operation behind a generic kernel name.
+        (rows if evt.device_type == DeviceType.CUDA else by_op).append(
+            (evt.key, dev_us / 1e3, evt.count))
+    rows.sort(key=lambda r: -r[1])
+    by_op.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    check(busy_ms > 0.0, f"profile {what}: the trace shows no device time")
+    emit({
+        "phase": "profile", "arch": arch, "what": what, "steps": steps,
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_launches": sum(r[2] for r in rows),
+        "top": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in rows[:14]],
+        "top_ops": [{"op": n, "ms": ms, "calls": c} for n, ms, c in by_op[:14]],
+        "ours": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in rows
+                 if any(k in n for k in PORT_KERNEL_NAMES)],
+        "memsets": sum(c for n, _, c in rows if "memset" in n.lower()),
+    })
+
+
+def phase_profile(torch, served, decode_steps: int = 4):
+    """Optional: one prefill and a few decode steps, traced."""
     model, _, params, tokens, prefill, decode = served
 
-    def run(what):
-        state = model.decode_state_init(PREFILL_BATCH, PREFILL_LEN + decode_steps)
-        logits, state = prefill(params, state, {"tokens": tokens})
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            if what == "prefill":
-                fresh = model.decode_state_init(PREFILL_BATCH, PREFILL_LEN + decode_steps)
-                prefill(params, fresh, {"tokens": tokens})
-            else:
-                for _ in range(decode_steps):
-                    tok = torch.argmax(logits, dim=-1).to(torch.int32)
-                    logits, state = decode(params, state, tok)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows, by_op = [], []
-        for evt in prof.key_averages():
-            dev_us = getattr(evt, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-            if dev_us <= 0:
-                continue
-            # The busy time sums the device's own events only; a host
-            # operator's row repeats the time of the kernels it launched
-            # itself, and names the operation behind a generic kernel name.
-            (rows if evt.device_type == DeviceType.CUDA else by_op).append(
-                (evt.key, dev_us / 1e3, evt.count))
-        rows.sort(key=lambda r: -r[1])
-        by_op.sort(key=lambda r: -r[1])
-        busy_ms = sum(r[1] for r in rows)
-        check(busy_ms > 0.0, f"profile {what}: the trace shows no device time")
-        emit({
-            "phase": "profile", "arch": model.cfg.name, "what": what, "steps": 1 if what == "prefill" else decode_steps,
-            "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "device_launches": sum(r[2] for r in rows),
-            "top": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in rows[:14]],
-            "top_ops": [{"op": n, "ms": ms, "calls": c} for n, ms, c in by_op[:14]],
-            "ours": [{"name": n[:80], "ms": ms, "calls": c} for n, ms, c in rows
-                     if any(k in n for k in PORT_KERNEL_NAMES)],
-            "memsets": sum(c for n, _, c in rows if "memset" in n.lower()),
-        })
+    state = model.decode_state_init(PREFILL_BATCH, PREFILL_LEN + decode_steps)
+    logits, state = prefill(params, state, {"tokens": tokens})
 
-    run("prefill")
-    run("decode")
+    def prefill_window():
+        fresh = model.decode_state_init(PREFILL_BATCH, PREFILL_LEN + decode_steps)
+        prefill(params, fresh, {"tokens": tokens})
+
+    def decode_window():
+        nonlocal logits, state
+        for _ in range(decode_steps):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            logits, state = decode(params, state, tok)
+
+    profiled(torch, model.cfg.name, "prefill", 1, prefill_window)
+    profiled(torch, model.cfg.name, "decode", decode_steps, decode_window)
 
 
 # --------------------------------------------------------------------- #
@@ -1009,12 +1031,14 @@ def run_link(torch, policy, n, ticks, device):
 
 
 def same_link_run(torch, a, b, where, exact_estimates):
+    """``exact_estimates`` names the estimates that must be equal; the rest
+    agree to rtol 1e-6."""
     for t, (sa, sb) in enumerate(zip(a, b)):
         at = f"{where} tick {t}"
         check(torch.equal(sa[0], sb[0]), f"{at}: dest")
         check(torch.equal(sa[1], sb[1]), f"{at}: distribute")
         for i, name in ((2, "est_bytes_moved"), (3, "est_time_saved")):
-            ok = sa[i] == sb[i] if exact_estimates else abs(sa[i] - sb[i]) <= 1e-6 * abs(sb[i])
+            ok = sa[i] == sb[i] if name in exact_estimates else abs(sa[i] - sb[i]) <= 1e-6 * abs(sb[i])
             check(ok, f"{at}: {name} {sa[i]!r} against {sb[i]!r}")
         for key, v in sa[4].items():
             if isinstance(v, dict):
@@ -1126,8 +1150,11 @@ def phase_link(torch, card="cuda"):
             first, ms_card = run_link(torch, policy, n, ticks, card)
             again, _ = run_link(torch, policy, n, ticks, card)
             host, ms_host = run_link(torch, policy, n, ticks, HOST)
-            same_link_run(torch, first, again, f"link {policy.name} n={n}: two card runs", True)
-            same_link_run(torch, first, host, f"link {policy.name} n={n}: card against host", False)
+            same_link_run(torch, first, again, f"link {policy.name} n={n}: two card runs",
+                          ("est_bytes_moved", "est_time_saved"))
+            # bytes_moved is one long sum in XLA's host order on both.
+            same_link_run(torch, first, host, f"link {policy.name} n={n}: card against host",
+                          ("est_bytes_moved",))
             row[policy.name] = {
                 "host_ms_card": st.median(ms_card), "host_ms_card_first": ms_card[0],
                 "host_ms_cpu": st.median(ms_host),
@@ -1429,6 +1456,426 @@ def phase_sim(torch, card="cuda"):
 
 
 # --------------------------------------------------------------------- #
+# Phase 9: the DySkew data pipeline, card against host
+# --------------------------------------------------------------------- #
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_SHARDS, TRAIN_STEPS = 8, 1024, 8, 4
+PIPELINE_BATCHES = 64
+# A shape at which the link does move sequences (eight a shard).
+MOVING_BATCH, MOVING_SEQ = 64, 128
+
+
+def train_data_config(vocab: int, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH):
+    from repro_torch.data.pipeline import DataConfig
+
+    return DataConfig(vocab_size=vocab, seq_len=seq, global_batch=batch, num_shards=TRAIN_SHARDS)
+
+
+def data_pipeline_run(torch, data_cfg, device, count):
+    """``count`` batches from a fresh pipeline, each link plan's ``dest``
+    and the wall seconds (one thread, no prefetch: every batch's assembly
+    and link step is on the clock)."""
+    from repro_torch.data.pipeline import DataPipeline
+
+    pipe = DataPipeline(data_cfg, device=device)
+    dests, step = [], pipe.link.step
+
+    def recorded(*args, **kw):
+        state, plan = step(*args, **kw)
+        dests.append(plan.dest.cpu())
+        return state, plan
+    pipe.link.step = recorded
+    t0 = time.perf_counter()
+    batches = [next(pipe) for _ in range(count)]
+    return batches, dests, time.perf_counter() - t0, pipe
+
+
+def data_pipeline_card_host(torch, data_cfg, card, count):
+    """``count`` batches on the card and on the host: the same tokens,
+    targets, plans and link state.  Returns the card's batches, the wall
+    seconds on each device, the card's pipeline and how many batches the
+    link moved a sequence off its producer's shard in."""
+    import numpy as np
+
+    (b_card, d_card, s_card, p_card), (b_host, d_host, s_host, p_host) = (
+        data_pipeline_run(torch, data_cfg, dev, count) for dev in (card, HOST))
+    shape = f"{data_cfg.global_batch}x{data_cfg.seq_len}"
+    for i, (a, b) in enumerate(zip(b_card, b_host)):
+        for key in ("tokens", "targets"):
+            check(np.array_equal(a[key], b[key]), f"data_pipeline {shape} batch {i}: {key}")
+    check(len(d_card) == len(d_host) == count, f"data_pipeline {shape}: one link step a batch")
+    check(all(torch.equal(a, b) for a, b in zip(d_card, d_host)), f"data_pipeline {shape}: dest")
+    for key in ("state", "strikes", "transitions", "tick"):
+        check(torch.equal(p_card.link_state[key].cpu(), p_host.link_state[key]),
+              f"data_pipeline {shape}: link {key}")
+    for key, v in p_card.link_state["metrics"].items():
+        check(torch.equal(v.cpu(), p_host.link_state["metrics"][key]),
+              f"data_pipeline {shape}: link metric {key}")
+    batch = data_cfg.global_batch
+    producer = torch.arange(batch) * data_cfg.num_shards // batch
+    moves = sum(bool((d != producer).any()) for d in d_card)
+    return b_card, s_card, s_host, p_card, moves
+
+
+def phase_data_pipeline(torch, card="cuda"):
+    """At the training shape (one sequence a shard, so the cost gate keeps
+    every sequence home) and at 64 x 128 on 8 shards, where the link moves
+    sequences: the card's plans must equal the host's at both."""
+    import numpy as np
+
+    data_cfg = train_data_config(49155)
+    b_card, s_card, s_host, p_card, moves = data_pipeline_card_host(torch, data_cfg, card, PIPELINE_BATCHES)
+    moving_cfg = train_data_config(49155, seq=MOVING_SEQ, batch=MOVING_BATCH)
+    _, m_card, m_host, _, m_moves = data_pipeline_card_host(torch, moving_cfg, card, PIPELINE_BATCHES)
+    check(m_moves > 0, f"data_pipeline {MOVING_BATCH}x{MOVING_SEQ}: the link moved no sequence")
+    # The prefetch thread on the card, on its own stream: the same batches.
+    threaded = p_card.__class__(data_cfg, device=card).start()
+    thread = threaded._thread
+    try:
+        for i in range(min(8, len(b_card))):
+            check(np.array_equal(next(threaded)["tokens"], b_card[i]["tokens"]), f"data_pipeline thread batch {i}")
+    finally:
+        threaded.stop()
+    check(not thread.is_alive(), "data_pipeline: stop joins the thread")
+    emit({"phase": "data_pipeline", "device": card, "batches": PIPELINE_BATCHES,
+          "shape": [TRAIN_BATCH, TRAIN_SEQ], "shards": TRAIN_SHARDS,
+          "ms_per_batch_card": s_card / PIPELINE_BATCHES * 1e3, "ms_per_batch_cpu": s_host / PIPELINE_BATCHES * 1e3,
+          "batches_with_moves": moves,
+          "nonpad_token_share": float(np.mean([(b["tokens"] != 0).mean() for b in b_card])),
+          "moving": {"shape": [MOVING_BATCH, MOVING_SEQ], "shards": TRAIN_SHARDS,
+                     "batches_with_moves": m_moves,
+                     "ms_per_batch_card": m_card / PIPELINE_BATCHES * 1e3,
+                     "ms_per_batch_cpu": m_host / PIPELINE_BATCHES * 1e3},
+          "card_equals_host": True})
+
+
+# --------------------------------------------------------------------- #
+# Phase 10: the serving engine's scheduler, card against host
+# --------------------------------------------------------------------- #
+
+
+def serving_configs():
+    """(name, ServeConfig keywords, requests): ``launch/serve.py``'s
+    defaults under two schedulers, and the fair-share, deadline-aware,
+    preempting configuration of ``tests/test_slo_layer.py``."""
+    from repro_torch.launch.serve import requests
+    from repro_torch.serving.engine import Request
+
+    def gold_and_bulk():
+        return [Request(rid=i, prompt_len=128, max_new_tokens=60 if i % 4 == 0 else 400,
+                        arrival=i * 0.01, tenant=0 if i % 4 == 0 else 1) for i in range(40)]
+    return (
+        ("dyskew", dict(scheduler="dyskew"), lambda: requests(64)),
+        ("round_robin", dict(scheduler="round_robin"), lambda: requests(64)),
+        ("fair_share_deadline", dict(num_replicas=2, max_batch=4, decode_rate=2_000.0,
+                                     tenant_weights=(1.0, 1.0), slo_targets=(0.5, None),
+                                     deadline_aware=True, preemption=True), gold_and_bulk),
+    )
+
+
+def same_value(a, b, where):
+    import math
+
+    check(type(a) is type(b), f"{where}: {type(a).__name__} against {type(b).__name__}")
+    if isinstance(a, dict):
+        check(list(a) == list(b), f"{where}: keys")
+        for k in a:
+            same_value(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, float):
+        check(a == b or (math.isnan(a) and math.isnan(b)), f"{where}: {a!r} against {b!r}")
+    else:
+        check(a == b, f"{where}: {a!r} against {b!r}")
+
+
+def phase_serving_engine(torch, card="cuda"):
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    row = {"phase": "serving_engine", "device": card}
+    for name, kw, make_requests in serving_configs():
+        out = []
+        for dev in (card, HOST):
+            eng = ServingEngine(ServeConfig(**kw), seed=0, device=dev)
+            inner, calls = eng.sched.rebalance, []
+
+            def rebalance(queued, load_tokens, _inner=inner, _calls=calls):
+                t0 = time.perf_counter()
+                moves = _inner(queued, load_tokens)
+                _calls.append((time.perf_counter() - t0, dict(moves), len(queued)))
+                return moves
+            eng.sched.rebalance = rebalance
+            t0 = time.perf_counter()
+            res = eng.run(make_requests())
+            # A pass runs the link when its policy uses one and requests wait.
+            linked = [c for c in calls if c[2] > 0] if eng.sched.policy.uses_link else []
+            out.append((res, calls, time.perf_counter() - t0, linked))
+        (res, calls, wall, linked), (res_h, calls_h, wall_h, linked_h) = out
+        same_value(res, res_h, f"serving_engine {name}")
+        check([c[1] for c in calls] == [c[1] for c in calls_h], f"serving_engine {name}: rebalance moves")
+        row[name] = {
+            "wall_s_card": wall, "wall_s_cpu": wall_h, "rebalance_calls": len(calls),
+            "rebalance_link_steps": len(linked),
+            "ms_per_rebalance_card": sum(c[0] for c in linked) / len(linked) * 1e3 if linked else None,
+            "ms_per_rebalance_cpu": sum(c[0] for c in linked_h) / len(linked_h) * 1e3 if linked_h else None,
+            "moves": sum(len(c[1]) for c in calls),
+            "completed": res["completed"], "mean_latency_virtual_s": res["mean_latency"],
+            "p99_latency_virtual_s": res["p99_latency"], "migrations": res["migrations"],
+        }
+        check(res["completed"] > 0, f"serving_engine {name}: nothing completed")
+    row["card_equals_host"] = True
+    emit(row)
+
+
+# --------------------------------------------------------------------- #
+# Phase 11: training, step 1 kernel against plain, then 4 full steps
+# --------------------------------------------------------------------- #
+
+#: Step 1, kernel path against plain path, at full width and depth in
+#: float32 (TF32 off).  The plain path differentiates through the plain
+#: versions of all three dispatch steps; its gating replays the kernel
+#: path's picks and takes the kernel's weights as its forward value
+#: (``PickLog``), so both forwards are the same bits and the comparison is of
+#: the backwards: the loss, and each leaf's max |difference| over its max
+#: |gradient|.  Left to its own forward, the plain path differs from the
+#: kernel path in the weights' last bits, which the random model (stacked
+#: leaves drawn at fan-in = the number of blocks) amplifies from layer to
+#: layer: that run is reported and held only to ``TRAIN_OWN_LOSS_RTOL``.
+#: In bf16, the training dtype, the gradients are held to the looser
+#: ``TRAIN_GRAD_TOL_BF16``: at random init the attention's softmax backward
+#: cancels (P · (dP - Σ P dP) with P near uniform), so a bf16 rounding of an
+#: upstream gradient moves the q/k gradients by a large share of their own
+#: size (4.92e-2 of the largest element on an H100), while a gradient that
+#: is dropped or zeroed reads 1.0.
+TRAIN_LOSS_RTOL = 1e-6
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_GRAD_TOL_BF16 = 0.2
+TRAIN_OWN_LOSS_RTOL = 1e-3
+
+
+class PickLog:
+    """The kernel path's gating, keeping each call's weights and picks in
+    call order (forward, then the recompute of each block), and a plain
+    gating that replays them: softmax, gather and renormalise by autograd,
+    with the kernel's weights as the forward value and the plain graph's
+    gradient.  ``flips`` counts the rows where the plain version's own
+    picks would differ."""
+
+    def __init__(self):
+        self.calls, self.replayed, self.flips = [], 0, 0
+
+    def record(self, logits, k):
+        from repro_torch.models.layers.moe import KERNEL_OPS
+
+        w, idx = KERNEL_OPS.gating(logits, k)
+        self.calls.append((w.detach(), idx))
+        return w, idx
+
+    def replay(self, logits, k):
+        from repro_torch.kernels.topk_gating.ref import gate_probs, renormalise, topk_gating_ref
+
+        w_kernel, idx = self.calls[self.replayed]
+        self.replayed += 1
+        self.flips += int((topk_gating_ref(logits.detach(), k)[1] != idx).any(dim=-1).sum())
+        w = renormalise(gate_probs(logits), idx)
+        # The kernel's bits forward (w - w.detach() is exactly 0), the plain
+        # graph's gradient backward.
+        return w_kernel + (w - w.detach()), idx
+
+
+def tree_pairs(a, b):
+    from repro_torch.checkpoint.manager import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    check([k for k, _ in fa] == [k for k, _ in fb], "trees differ in their keys")
+    return [(k, x, y) for (k, x), (_, y) in zip(fa, fb)]
+
+
+def step_one_checks(torch, model, data_cfg, card):
+    """Step 1's loss and gradients from one set of params and one batch:
+    through the kernels twice, through the plain versions on the kernel
+    path's forward values, and through the plain versions on their own."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.models import transformer
+    from repro_torch.models.layers.moe import KERNEL_OPS, PLAIN_OPS
+    from repro_torch.train.step import batch_to, make_grad_fn
+
+    params = model.init(torch.Generator().manual_seed(0), device=card)
+    batch = batch_to(next(DataPipeline(data_cfg, device=card)), torch.device(card))
+    dyskew = model.dyskew_init(device=card)
+    picks = PickLog()
+    runs = []
+    for ops in (dataclasses.replace(KERNEL_OPS, gating=picks.record), KERNEL_OPS):
+        runs.append(make_grad_fn(model, ops=ops)(params, batch, dyskew))
+    (loss_k, aux_k, grads_k), (_, _, grads_k2) = runs
+    del runs
+    n_moe = len(transformer.moe_layer_positions(model.cfg)) * transformer.num_blocks(model.cfg)
+    # Every leaf bit-equal over two kernel runs: the gating and dispatch
+    # backwards are deterministic, and so is all that follows them.
+    for key, a, b in tree_pairs(grads_k, grads_k2):
+        check(torch.equal(a, b), f"train step 1: two kernel runs give other {key} gradients")
+    del grads_k2
+
+    loss_p, aux_p, grads_p = make_grad_fn(model, ops=dataclasses.replace(PLAIN_OPS, gating=picks.replay))(
+        params, batch, dyskew)
+    check(picks.replayed == len(picks.calls) == 2 * n_moe, "train step 1: the plain path's gating calls")
+    grad_tol = TRAIN_GRAD_TOL if model.cfg.dtype == "float32" else TRAIN_GRAD_TOL_BF16
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train step 1 {model.cfg.dtype}: loss {float(loss_k)} against plain {float(loss_p)}")
+    errs = {}
+    for key, a, b in tree_pairs(grads_k, grads_p):
+        check(bool(torch.isfinite(a).all()), f"train step 1: {key} gradient not finite")
+        scale = float(b.float().abs().max())
+        errs[key] = float((a.float() - b.float()).abs().max()) / max(scale, 1e-30)
+        check(scale > 0, f"train step 1: {key} gradient is zero")
+        check(errs[key] <= grad_tol, f"train step 1 {model.cfg.dtype}: {key} gradient {errs[key]} off plain")
+    for key in ("moe_dropped_frac", "moe_distribute_frac"):
+        check(float(aux_k["metrics"][key]) == float(aux_p["metrics"][key]), f"train step 1: {key}")
+    del grads_p, grads_k
+    loss_own, _, _ = make_grad_fn(model, ops=PLAIN_OPS)(params, batch, dyskew)
+    own_rel = abs(float(loss_k) - float(loss_own)) / abs(float(loss_own))
+    check(own_rel <= TRAIN_OWN_LOSS_RTOL, f"train step 1 {model.cfg.dtype}: loss {float(loss_k)} against "
+          f"the plain path's own {float(loss_own)}")
+    out = {"dtype": model.cfg.dtype, "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+           "loss_rel_diff": loss_rel, "loss_tol": TRAIN_LOSS_RTOL, "grad_tol": grad_tol,
+           "grad_err_max": max(errs.values()), "grad_err_by_leaf": errs,
+           "loss_plain_own_forward": float(loss_own), "loss_rel_diff_own_forward": own_rel,
+           "plain_pick_flips_own_forward": picks.flips,
+           "all_grads_bitwise_equal": True,
+           "moe_layers": n_moe, "gating_calls": len(picks.calls)}
+    del params, batch, picks
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(torch, card="cuda", profile=False):
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.config.base import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.model_api import build
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.train.loop import LoopConfig, train
+
+    t_start = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    model = build(cfg)
+    data_cfg = train_data_config(cfg.vocab_size)
+    opt_cfg = OptimizerConfig(name=cfg.optimizer, warmup_steps=1, total_steps=TRAIN_STEPS)
+    row = {"phase": "train", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k, "dtype": cfg.dtype, "remat": cfg.remat,
+           "optimizer": opt_cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "shards": TRAIN_SHARDS,
+           "steps": TRAIN_STEPS, "params": model.num_params()}
+    row["step_one"] = [step_one_checks(torch, build(dataclasses.replace(cfg, dtype=dtype)), data_cfg, card)
+                       for dtype in ("float32", cfg.dtype)]
+
+    # ---- 4 steps through the loop: the counted main path ------------- #
+    stamps = []
+
+    def on_metrics(step, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train(cfg, data_cfg, opt_cfg, LoopConfig(steps=TRAIN_STEPS, log_every=1), on_metrics=on_metrics,
+                device=card)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    n_moe = len(transformer.moe_layer_positions(cfg)) * transformer.num_blocks(cfg)
+    want = {"topk_gating": 2 * n_moe * TRAIN_STEPS, "load_histogram": 2 * n_moe * TRAIN_STEPS,
+            "dispatch_gather": 2 * n_moe * TRAIN_STEPS, "ssd_state_scan": 0}
+    for name, n in counts.items():
+        check(n == want[name], f"train: {name} launched {n} times, expected {want[name]} (forward and recompute)")
+    check(len(hist) == TRAIN_STEPS and all(math.isfinite(h["loss"]) for h in hist), "train: a loss is not finite")
+    steps_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    steady_ms = sum(steps_ms) / len(steps_ms)
+    row.update(
+        wall_s=wall, ms_per_step=steady_ms, ms_steps_2_to_4=steps_ms,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (steady_ms / 1e3), peak_memory_bytes=peak,
+        loss=[h["loss"] for h in hist], grad_norm=[h["grad_norm"] for h in hist],
+        lr=[h["lr"] for h in hist], moe_dropped_frac=[h["moe_dropped_frac"] for h in hist],
+        moe_distribute_frac=[h["moe_distribute_frac"] for h in hist],
+        data_wait_ms=[h["data_wait_s"] * 1e3 for h in hist],
+        launches=counts, launches_per_step={k: v // TRAIN_STEPS for k, v in counts.items()},
+    )
+    state = out["state"]
+    check(int(state["step"]) == TRAIN_STEPS, "train: step counter")
+    check(state["dyskew"]["l0"]["link"]["tick"].tolist() == [TRAIN_STEPS] * transformer.num_blocks(cfg),
+          "train: the links tick once a step")
+
+    # ---- checkpoint round trip on the card ---------------------------- #
+    # The whole train state: parameters (bf16, stored as raw bits), the
+    # float32 AdamW moments, link states and the step counter.
+    where = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(where)
+        disk_free = shutil.disk_usage(where).free
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, state, blocking=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = mgr.restore(state)
+        restore_s = time.perf_counter() - t0
+        pairs = tree_pairs(state, back)
+        check(all(b.device == a.device and b.dtype == a.dtype and torch.equal(a, b) for _, a, b in pairs),
+              "train: checkpoint round trip")
+        row["checkpoint"] = {"leaves": len(pairs), "bytes": sum(a.numel() * a.element_size() for _, a, _ in pairs),
+                             "save_s": save_s, "restore_s": restore_s, "disk_free_bytes": disk_free,
+                             "equal": True}
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    del back, pairs
+
+    if profile:
+        from repro_torch.data.pipeline import DataPipeline
+        from repro_torch.train.step import make_train_step
+
+        step = make_train_step(model, opt_cfg)
+        batch = next(DataPipeline(data_cfg, device=card))
+        state, _ = step(state, batch)
+        holder = [state]
+
+        def one_step():
+            holder[0], _ = step(holder[0], batch)
+        profiled(torch, cfg.name, "train_step", 1, one_step)
+        del holder
+    del out, state
+    torch.cuda.empty_cache()
+
+    # ---- the reduced config: the same 4 steps on the card and the host -- #
+    small = dataclasses.replace(cfg.reduced(), dtype="float32")
+    small_data = train_data_config(small.vocab_size, seq=128)
+    runs = {dev: train(small, small_data, opt_cfg, LoopConfig(steps=TRAIN_STEPS, log_every=1), device=dev)
+            for dev in (card, HOST)}
+    h_card, h_host = ([h["moe_distribute_frac"] for h in runs[dev]["history"]] for dev in (card, HOST))
+    s_card, s_host = runs[card]["state"]["dyskew"], runs[HOST]["state"]["dyskew"]
+    check(h_card == h_host, f"train reduced: moe_distribute_frac {h_card} against {h_host}")
+    for key, a, b in tree_pairs(s_card, s_host):
+        if "/link/" in f"/{key}/":
+            check(torch.equal(a.cpu(), b), f"train reduced: dyskew {key}")
+    ema = max(float((a.cpu() - b).abs().max()) for key, a, b in tree_pairs(s_card, s_host) if key.endswith("ema_loads"))
+    row["reduced"] = {
+        "layers": small.num_layers, "d_model": small.d_model, "experts": small.moe.num_experts,
+        "dtype": small.dtype, "batch": TRAIN_BATCH, "seq": 128, "steps": TRAIN_STEPS,
+        "moe_distribute_frac": h_card, "link_states_equal": True, "ema_loads_max_abs_diff": ema,
+        "loss_card": [h["loss"] for h in runs[card]["history"]],
+        "loss_cpu": [h["loss"] for h in runs[HOST]["history"]],
+    }
+    row["seconds"] = time.perf_counter() - t_start
+    emit(row)
+    return counts
+
+
+# --------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -1436,7 +1883,8 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print the registers and shared memory ptxas reports for each kernel")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one prefill and four decode steps of each model with torch.profiler")
+                    help="also trace one prefill and four decode steps of each model, and one "
+                         "training step, with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -1464,7 +1912,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    counts = {}
+    counts = {"serve": {}}
     with torch.no_grad():
         cases = phase_kernel_checks(torch)
         phase_moe(torch)
@@ -1475,13 +1923,18 @@ def main() -> int:
                                       (SSM_ARCH, ("ssd_state_scan",))):
             served = served_model(torch, arch)
             got = phase_serve(torch, served)
-            counts.update({k: got[k] for k in kernels_of_path})
+            counts["serve"].update({k: got[k] for k in kernels_of_path})
             if args.profile:
                 phase_profile(torch, served)
             del served, got
             torch.cuda.empty_cache()
         phase_link(torch)
         phase_sim(torch)
+        phase_data_pipeline(torch)
+        phase_serving_engine(torch)
+    # Training needs autograd: outside the no_grad block.  Its counts are
+    # of the 4 steps through the loop (forward and recompute).
+    counts["train"] = phase_train(torch, profile=args.profile)
 
     rows = []
     prefill_case = {"topk_gating": "prefill_bf16", "load_histogram": "prefill",
@@ -1489,10 +1942,11 @@ def main() -> int:
     for kname, case_name in prefill_case.items():
         mine = [c for c in cases if c["kernel"] == kname]
         c = next(c for c in mine if c["case"] == case_name)
-        check(counts[kname] > 0, f"{kname} was never launched on the main path")
+        by_path = {path: got[kname] for path, got in counts.items() if got.get(kname)}
+        check(sum(by_path.values()) > 0, f"{kname} was never launched on the main path")
         rows.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": REPLACES[kname], "launches": counts[kname],
+            "replaces": REPLACES[kname], "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(m["max_abs_err"] for m in mine),
             "ms": c["kernel_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],

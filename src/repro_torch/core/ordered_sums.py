@@ -14,8 +14,9 @@ from the slot's starting value, which is also how XLA on the host adds a
 scatter and a short reduction.  ``torch.segment_reduce`` on a 2-D input
 gives one thread (or one host loop) to each segment and column and walks
 the segment in order, on both devices; those two functions bring their
-operands into that shape.  ``sum_all``, for one long sum, adds pairwise in
-a fixed tree.  None of them waits for the device.
+operands into that shape.  ``sum_windows``, for one long sum, takes the
+tree XLA on the host takes; ``sum_all`` adds pairwise in a fixed tree.
+None of them waits for the device.
 """
 
 from __future__ import annotations
@@ -72,6 +73,26 @@ def sum_all(x: torch.Tensor) -> torch.Tensor:
             flat = torch.cat([flat, flat.new_zeros(1)])
         flat = flat[0::2] + flat[1::2]
     return flat.reshape(())
+
+
+#: The window of XLA's CPU tree-reduction rewrite.
+XLA_REDUCE_WINDOW = 32
+
+
+def sum_windows(x: torch.Tensor) -> torch.Tensor:
+    """Sum of every element as a 0-dim tensor, in the order XLA on the host
+    adds a long reduce.  XLA rewrites a reduce of more than 32 elements into
+    a reduce-window of 32 with stride 32, whose zero padding is split with
+    the odd zero at the end, and repeats that until at most 32 partial sums
+    remain, which one plain reduce adds.  Each window and the last reduce
+    add in order from 0."""
+    flat = x.reshape(-1)
+    w = XLA_REDUCE_WINDOW
+    while flat.numel() > w:
+        pad = -flat.numel() % w
+        flat = torch.nn.functional.pad(flat, (pad // 2, pad - pad // 2))
+        flat = sum_last(flat.reshape(-1, w))
+    return sum_last(flat.reshape(1, -1)).reshape(())
 
 
 def div(x: torch.Tensor, k: float) -> torch.Tensor:

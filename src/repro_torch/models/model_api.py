@@ -1,5 +1,5 @@
-"""Unified model API: specs / init / prefill / decode for the decoder-only
-families the port has (training comes with a later slice)."""
+"""Unified model API: specs / init / loss / prefill / decode for the
+decoder-only families the port has."""
 
 from __future__ import annotations
 
@@ -11,8 +11,10 @@ import torch
 from repro_torch._device import DeviceLike
 from repro_torch.config.base import ArchConfig
 from repro_torch.models import transformer
-from repro_torch.models.layers.moe import SpmdCtx
+from repro_torch.models.layers.moe import KERNEL_OPS, DispatchOps, SpmdCtx
 from repro_torch.models.param import tree_materialize, tree_num_params
+
+MOE_AUX_COEF = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +39,30 @@ class Model:
 
     def num_params(self) -> int:
         return tree_num_params(self.specs())
+
+    # ---------------- training ------------------ #
+
+    def loss(
+        self,
+        params: Dict,
+        batch: Dict[str, torch.Tensor],
+        *,
+        dyskew: Optional[Dict] = None,
+        ctx: SpmdCtx = SpmdCtx(),
+        ops: DispatchOps = KERNEL_OPS,
+    ) -> Tuple[torch.Tensor, Dict]:
+        """batch: tokens (B,S), targets (B,S).  Returns (loss, aux) with
+        the new link states in ``aux["dyskew"]`` when ``dyskew`` is given."""
+        logits, aux = transformer.forward(
+            params, batch["tokens"], cfg=self.cfg, ctx=ctx, dyskew=dyskew,
+            prefix_embeds=batch.get("patches"), ops=ops,
+        )
+        loss = transformer.lm_loss(logits, batch["targets"])
+        metrics = dict(aux.get("metrics", {}))
+        if "moe_aux_loss" in metrics:
+            loss = loss + MOE_AUX_COEF * metrics["moe_aux_loss"]
+        metrics["loss"] = loss
+        return loss, dict(aux, metrics=metrics)
 
     # ---------------- serving ------------------- #
 

@@ -63,8 +63,9 @@ def tree_materialize(
     device: DeviceLike = None,
 ) -> Any:
     """Real initialization: normal leaves are drawn in float32 from
-    ``generator`` (which must live on ``device``), leaf by leaf in sorted
-    key order, scaled by ``scale`` or 1/sqrt(fan_in), then cast."""
+    ``generator`` on the generator's own device, leaf by leaf in sorted
+    key order, scaled by ``scale`` or 1/sqrt(fan_in), then cast and put on
+    ``device`` (a host generator gives the same weights on every device)."""
     dev = resolve_device(device)
 
     def make(p: ParamSpec) -> torch.Tensor:
@@ -75,8 +76,8 @@ def tree_materialize(
             return torch.ones(p.shape, dtype=dt, device=dev)
         fan_in = p.shape[0] if len(p.shape) >= 2 else max(p.shape[-1], 1)
         scale = p.scale if p.scale is not None else 1.0 / math.sqrt(fan_in)
-        draw = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=dev)
-        return (scale * draw).to(dt)
+        draw = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=generator.device)
+        return (scale * draw).to(device=dev, dtype=dt)
 
     return tree_map(make, tree)
 

@@ -5,7 +5,11 @@ Layers are grouped into *blocks* of ``period`` layers (period = lcm of the
 attention interleave and the MoE every-other layout) and every parameter
 leaf is stacked over the blocks on a leading axis, the layout ``repro``
 scans over.  Here the block stack is a Python loop over that leading axis,
-so carrying weights across from ``repro`` is one copy per leaf.
+so carrying weights across from ``repro`` is one copy per leaf.  With
+``cfg.remat`` and grad on, each block runs under
+``torch.utils.checkpoint``, as ``repro`` wraps its scanned block in
+``jax.checkpoint``: the backward recomputes the block, MoE link tick
+included, from the same inputs.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config.base import ArchConfig
@@ -30,6 +35,8 @@ from repro_torch.models.layers.mamba2 import (
     mamba_state_init,
 )
 from repro_torch.models.layers.moe import (
+    KERNEL_OPS,
+    DispatchOps,
     SpmdCtx,
     moe_apply,
     moe_specs,
@@ -190,6 +197,7 @@ def _apply_layer(
     cache_index: Optional[int],
     moe_state: Optional[Dict],
     metrics: Dict,
+    ops: DispatchOps = KERNEL_OPS,
 ):
     """One layer: pre-norm mixer + pre-norm ffn with residuals.  For a Mamba
     position ``cache`` is the layer's SSM state, updated in place."""
@@ -221,7 +229,7 @@ def _apply_layer(
         stateless = moe_state is None
         ms = moe_state_init(cfg, ctx, x.device) if stateless else moe_state
         moe_out, new_moe_state, moe_metrics = moe_apply(
-            lp["moe"], h, cfg=cfg, state=ms, ctx=ctx
+            lp["moe"], h, cfg=cfg, state=ms, ctx=ctx, ops=ops
         )
         if stateless:
             new_moe_state = None
@@ -239,6 +247,16 @@ def _take_block(tree: Any, b: int) -> Any:
     return tree_map(lambda a: a[b], tree)
 
 
+def _unbind_blocks(tree: Any, nb: int) -> List[Any]:
+    """The ``nb`` blocks of every stacked leaf as views, from one ``unbind``
+    a leaf: its backward stacks the blocks' gradients once, where a view a
+    block would add ``nb`` full-size gradients."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind_blocks(v, nb) for k, v in tree.items()}
+        return [{k: v[b] for k, v in parts.items()} for b in range(nb)]
+    return list(tree.unbind(0))
+
+
 def _stack_blocks(trees: List[Any]) -> Any:
     if isinstance(trees[0], dict):
         return {k: _stack_blocks([t[k] for t in trees]) for k in trees[0]}
@@ -254,6 +272,7 @@ def forward(
     dyskew: Optional[Dict] = None,   # stacked MoE link states
     decode_state: Optional[Dict] = None,
     prefix_embeds: Optional[torch.Tensor] = None,
+    ops: DispatchOps = KERNEL_OPS,
 ) -> Tuple[torch.Tensor, Dict]:
     """Returns (logits (B,S,V), aux) where aux carries new dyskew states,
     new decode state, and scalar metrics.
@@ -262,6 +281,8 @@ def forward(
     place and the returned decode state holds the same tensors (with a new
     ``pos``).
     ``dyskew`` is not mutated; the new link states are fresh tensors.
+    ``ops`` are the MoE layers' dispatch steps (``moe.PLAIN_OPS`` for the
+    plain versions).
     """
     if prefix_embeds is not None:
         raise NotImplementedError(
@@ -295,10 +316,7 @@ def forward(
     mamba_pos = mamba_layer_positions(cfg)
     moe_pos = moe_layer_positions(cfg)
 
-    block_metrics: List[Dict[str, torch.Tensor]] = []
-    block_moe: List[Dict[str, Any]] = []
-    for b in range(nb):
-        bp = _take_block(params["blocks"], b)
+    def block(b: int, bp: Dict, x: torch.Tensor, moe_in: Dict):
         metrics: Dict[str, torch.Tensor] = {}
         out_moe = {}
         for j in range(period):
@@ -307,16 +325,32 @@ def forward(
                 cache_j = _take_block(decode_state[f"kv_l{j}"], b)
             elif decode_state is not None and j in mamba_pos:
                 cache_j = _take_block(decode_state[f"ssm_l{j}"], b)
-            moe_state_j = None
-            if dyskew is not None and j in moe_pos:
-                moe_state_j = _take_block(dyskew[f"l{j}"], b)
             x, _, new_moe = _apply_layer(
                 bp[f"l{j}"], x, j, cfg=cfg, ctx=ctx, positions=positions,
                 cache=cache_j, cache_index=cache_index,
-                moe_state=moe_state_j, metrics=metrics,
+                moe_state=moe_in.get(f"l{j}"), metrics=metrics, ops=ops,
             )
             if new_moe is not None:
                 out_moe[f"l{j}"] = new_moe
+        return x, metrics, out_moe
+
+    # The decode state is updated in place, which a recompute would repeat:
+    # remat is for the training forward only.
+    remat = cfg.remat and decode_state is None and torch.is_grad_enabled()
+    blocks = _unbind_blocks(params["blocks"], nb)
+    moe_blocks = (_unbind_blocks(dyskew, nb) if dyskew is not None
+                  else [{} for _ in range(nb)])
+    block_metrics: List[Dict[str, torch.Tensor]] = []
+    block_moe: List[Dict[str, Any]] = []
+    for b in range(nb):
+        if remat:
+            # No randomness in a block: nothing to stash for the recompute.
+            x, metrics, out_moe = checkpoint(
+                block, b, blocks[b], x, moe_blocks[b],
+                use_reentrant=False, preserve_rng_state=False,
+            )
+        else:
+            x, metrics, out_moe = block(b, blocks[b], x, moe_blocks[b])
         block_metrics.append(metrics)
         block_moe.append(out_moe)
 
@@ -337,3 +371,26 @@ def forward(
         new_state["pos"] = decode_state["pos"] + S
         aux["decode_state"] = new_state
     return logits, aux
+
+
+# ------------------------------------------------------------------ #
+# Losses
+# ------------------------------------------------------------------ #
+
+
+def lm_loss(
+    logits: torch.Tensor,        # (B, S, V)
+    targets: torch.Tensor,       # (B, S) integer, -1 = masked
+    z_loss: float = 1e-4,
+) -> torch.Tensor:
+    """Masked next-token NLL plus ``z_loss``·lse², in float32, over the
+    count of unmasked targets."""
+    mask = (targets >= 0).to(torch.float32)
+    tgt = torch.clamp(targets, min=0).to(torch.int64)
+    logits32 = logits.to(torch.float32)
+    lse = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, tgt[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    zl = z_loss * torch.square(lse) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return (nll.sum() + zl.sum()) / denom

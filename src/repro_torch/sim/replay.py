@@ -278,9 +278,10 @@ def compare_suites(
     cluster: ClusterConfig,
     strategies: Dict[str, StrategyConfig],
     seed: int = 0,
+    device: DeviceLike = None,
 ) -> Dict[str, SuiteResult]:
     return {
-        name: run_suite(profiles, cluster, st, seed=seed)
+        name: run_suite(profiles, cluster, st, seed=seed, device=device)
         for name, st in strategies.items()
     }
 

@@ -1,0 +1,83 @@
+"""Training loop: data pipeline → train step → checkpoint / telemetry.
+
+Runs on one device (``device``, ``None`` = the GPU): DySkew data balancing
+in the pipeline, async checkpointing, and per-step DySkew MoE telemetry.
+Each history entry also carries ``data_wait_s``, the seconds the loop spent
+blocked on the pipeline for that step's batch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.config.base import ArchConfig
+from repro_torch.data.pipeline import DataConfig, DataPipeline
+from repro_torch.models.layers.moe import SpmdCtx
+from repro_torch.models.model_api import build
+from repro_torch.optim.optimizers import OptimizerConfig
+from repro_torch.train.step import StepConfig, make_train_step, train_state_init
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    steps: int = 100
+    log_every: int = 10
+    checkpoint_every: int = 50
+    checkpoint_dir: Optional[str] = None
+    seed: int = 0
+
+
+def train(
+    cfg: ArchConfig,
+    data_cfg: DataConfig,
+    opt_cfg: OptimizerConfig,
+    loop_cfg: LoopConfig,
+    on_metrics: Optional[Callable[[int, Dict], None]] = None,
+    device: DeviceLike = None,
+) -> Dict:
+    dev = resolve_device(device)
+    model = build(cfg)
+    ctx = SpmdCtx()
+    step_fn = make_train_step(model, opt_cfg, StepConfig(), ctx)
+    # Drawn on the host: the same weights on every device.
+    gen = torch.Generator().manual_seed(loop_cfg.seed)
+    state = train_state_init(model, opt_cfg, gen, ctx, dev)
+
+    ckpt = None
+    start_step = 0
+    if loop_cfg.checkpoint_dir:
+        ckpt = CheckpointManager(loop_cfg.checkpoint_dir)
+        if ckpt.latest_step() is not None:
+            state = ckpt.restore(state)
+            start_step = int(state["step"])
+
+    pipe = DataPipeline(data_cfg, device=dev).start()
+    history = []
+    t0 = time.time()
+    try:
+        for step in range(start_step, loop_cfg.steps):
+            t_wait = time.perf_counter()
+            batch = next(pipe)
+            data_wait_s = time.perf_counter() - t_wait
+            state, metrics = step_fn(state, batch)
+            if (step + 1) % loop_cfg.log_every == 0 or step == start_step:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["step"] = step + 1
+                m["wall_s"] = round(time.time() - t0, 1)
+                m["data_wait_s"] = data_wait_s
+                history.append(m)
+                if on_metrics:
+                    on_metrics(step + 1, m)
+            if ckpt and (step + 1) % loop_cfg.checkpoint_every == 0:
+                ckpt.save(step + 1, state)
+        if ckpt:
+            ckpt.save(loop_cfg.steps, state, blocking=True)
+    finally:
+        pipe.stop()
+    return {"state": state, "history": history}

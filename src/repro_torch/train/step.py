@@ -1,13 +1,150 @@
-"""Makers of the serving steps (the training step comes with a later slice).
+"""Training / serving step builders.
 
-The steps are plain closures: there is no compile step, and each call runs
-eagerly on the device its tensors live on.
+``make_train_step`` returns the training step: forward + backward +
+global-norm clip + optimizer update + DySkew link-state advance, with
+optional microbatched gradient accumulation (the links tick once per
+microbatch).  The steps are plain closures: there is no compile step, and
+each call runs eagerly on the device its tensors live on.
 """
 
 from __future__ import annotations
 
-from repro_torch.models.layers.moe import SpmdCtx
+import dataclasses
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.core.ordered_sums import div
+from repro_torch.models.layers.moe import KERNEL_OPS, DispatchOps, SpmdCtx
 from repro_torch.models.model_api import Model
+from repro_torch.models.param import tree_leaves, tree_map
+from repro_torch.optim.optimizers import OptimizerConfig, opt_init, opt_update, zip_map
+from repro_torch.optim.specs import opt_state_specs
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    num_microbatches: int = 1
+    # int8 + error-feedback reduction across data-parallel replicas: it
+    # needs more than one device (ROADMAP.md queue A, multi-GPU).
+    grad_compression: bool = False
+
+
+def train_state_init(
+    model: Model, opt_cfg: OptimizerConfig, generator: torch.Generator,
+    ctx: SpmdCtx = SpmdCtx(), device: DeviceLike = None,
+) -> Dict:
+    """Params drawn from ``generator`` (on its own device) and put on
+    ``device``; zero optimizer state, step 0 and fresh link states."""
+    params = model.init(generator, device=device)
+    dev = resolve_device(device)
+    state = {
+        "params": params,
+        "opt": opt_init(opt_cfg, params),
+        "step": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+    dk = model.dyskew_init(ctx, dev)
+    if dk is not None:
+        state["dyskew"] = dk
+    return state
+
+
+def train_state_specs(model: Model, opt_cfg: OptimizerConfig) -> Dict:
+    """ParamSpec tree mirroring ``train_state_init``'s params and optimizer
+    state (the step counter and link states are small and left out)."""
+    pspecs = model.specs()
+    return {"params": pspecs, "opt": opt_state_specs(opt_cfg, pspecs)}
+
+
+def batch_to(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """numpy arrays (as ``DataPipeline`` yields them) or tensors → tensors
+    on ``device``."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def make_grad_fn(
+    model: Model, ctx: SpmdCtx = SpmdCtx(), ops: DispatchOps = KERNEL_OPS,
+) -> Callable[[Dict, Dict, Any], Tuple[torch.Tensor, Dict, Dict]]:
+    """grad_fn(params, batch, dyskew) -> (loss, aux, grads): the gradient of
+    ``Model.loss`` in every leaf, in the leaf's dtype; loss and metrics
+    detached, the new link states in ``aux["dyskew"]``."""
+
+    def grad_fn(params, batch, dyskew):
+        leaves = tree_leaves(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        it = iter(live)
+        p_live = tree_map(lambda _: next(it), params)
+        with torch.enable_grad():
+            loss, aux = model.loss(p_live, batch, dyskew=dyskew, ctx=ctx, ops=ops)
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        it = iter(grads)
+        aux = dict(aux, metrics={k: v.detach() for k, v in aux["metrics"].items()})
+        return loss.detach(), aux, tree_map(lambda _: next(it), params)
+
+    return grad_fn
+
+
+def make_train_step(
+    model: Model,
+    opt_cfg: OptimizerConfig,
+    step_cfg: StepConfig = StepConfig(),
+    ctx: SpmdCtx = SpmdCtx(),
+) -> Callable[[Dict, Dict], Tuple[Dict, Dict]]:
+    """Returns train_step(state, batch) -> (new_state, metrics)."""
+    if step_cfg.grad_compression:
+        raise NotImplementedError(
+            "compressed gradient reduction needs several devices: ROADMAP.md "
+            "queue A, 'allreduce_compressed'"
+        )
+
+    grad_fn = make_grad_fn(model, ctx)
+
+    def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
+        params = state["params"]
+        dyskew = state.get("dyskew")
+        batch = batch_to(batch, state["step"].device)
+
+        nm = step_cfg.num_microbatches
+        if nm == 1:
+            loss, aux, grads = grad_fn(params, batch, dyskew)
+            new_dyskew = aux.get("dyskew")
+            metrics = aux["metrics"]
+        else:
+            # Gradient accumulation over microbatches in float32; the DySkew
+            # links tick once per microbatch.
+            size = next(iter(batch.values())).shape[0] // nm
+            grads = zip_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+            dk, losses, mmetrics = dyskew, [], []
+            for i in range(nm):
+                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                loss_i, aux, g = grad_fn(params, mb, dk)
+                grads = zip_map(lambda a, b: a + b.to(a.dtype), grads, g)
+                dk = aux.get("dyskew", dk)
+                losses.append(loss_i)
+                mmetrics.append(aux["metrics"])
+            new_dyskew = dk
+            grads = zip_map(lambda g: div(g, nm), grads)
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in mmetrics]).mean() for k in mmetrics[0]}
+
+        with torch.no_grad():
+            new_params, new_opt, stats = opt_update(
+                opt_cfg, grads, state["opt"], params, state["step"]
+            )
+        new_state = dict(state, params=new_params, opt=new_opt, step=state["step"] + 1)
+        if new_dyskew is not None:
+            new_state["dyskew"] = new_dyskew
+        metrics = dict(metrics, **stats, loss=loss)
+        return new_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(model: Model, ctx: SpmdCtx = SpmdCtx()):

@@ -95,6 +95,17 @@ class TestOrderedSums:
             level = (level[0::2] + level[1::2]).astype(np.float32)
         np.testing.assert_array_equal(osum.sum_all(_t(x)).numpy(), level[0])
 
+    @pytest.mark.parametrize("size", [1, 31, 32, 33, 63, 64, 65, 1000, 1025, 1500, 32 * 32 + 1, 4096, 40_000])
+    def test_sum_windows_is_xla_host_order(self, size):
+        """Bit for bit ``jnp.sum`` on the host, on log-normal float32 with
+        zeros among them (a masked sum's input), where ``sum_all`` is not."""
+        rng = np.random.default_rng(size + 7)
+        for _ in range(4):
+            x = rng.lognormal(9.0, 1.5, size).astype(np.float32)
+            x[rng.random(size) < 0.4] = 0.0
+            want = np.asarray(jnp.sum(jnp.asarray(x)))
+            assert osum.sum_windows(_t(x)).numpy().tobytes() == want.tobytes(), size
+
     def test_div_rounds_once(self):
         x = np.arange(0, 4000, dtype=np.float32) * np.float32(1.37)
         for k in (3, 31, 1023):
@@ -272,6 +283,32 @@ class TestAdaptiveLinkStep:
         # The workload exercises the plan: eager links move rows, NEVER none.
         if policy in ("NEVER", "EAGER_SNOWPARK", "EARLY"):
             assert moved_any == (policy != "NEVER")
+
+    @pytest.mark.parametrize("n,items", [(4, 64), (32, 1500), (32, 4096)])
+    def test_float_sizes_bit_equal(self, n, items):
+        """Row sizes log-normal(9, 1.5) in float32, as serving's KV byte
+        counts are: the gate's ``bytes_moved`` is one long sum, and the port
+        must add it in XLA's order, so ``est_bytes_moved`` is EQUAL, not
+        close, over 30 eager ticks."""
+        jl, tl = _link_pair("EAGER_SNOWPARK", n)
+        js, ts = jl.init_state(), tl.init_state()
+        rng = np.random.default_rng(n * 7 + items)
+        moved = 0
+        for tick in range(30):
+            producer = np.minimum(rng.zipf(1.6, items) - 1, n - 1).astype(np.int32)
+            costs = rng.lognormal(-1.0, 1.5, items).astype(np.float32)
+            sizes = rng.lognormal(9.0, 1.5, items).astype(np.float32)
+            valid = rng.random(items) < 0.9
+            js, jp = jl.step(js, jnp.asarray(costs), jnp.asarray(sizes),
+                             jnp.asarray(producer), jnp.asarray(valid))
+            ts, tp = tl.step(ts, _t(costs), _t(sizes), _t(producer), _t(valid))
+            where = f"n={n} items={items} tick {tick}"
+            np.testing.assert_array_equal(np.asarray(jp.dest), tp.dest.numpy(), err_msg=where)
+            assert tp.est_bytes_moved.numpy().tobytes() == np.asarray(jp.est_bytes_moved).tobytes(), where
+            assert tp.est_time_saved.numpy().tobytes() == np.asarray(jp.est_time_saved).tobytes(), where
+            _assert_state_equal(js, ts, where)
+            moved += int(float(tp.est_bytes_moved) > 0)
+        assert moved > 0
 
     @pytest.mark.parametrize("self_skip", [False, True])
     def test_self_skip_parity(self, self_skip):

@@ -288,6 +288,20 @@ class TestReplayParity:
         ref, port = run_both(monkeypatch, build, min_ticks=1)
         assert_results_equal(ref, port)
 
+    def test_compare_suites_takes_device(self, monkeypatch):
+        """``compare_suites`` hands its device to every ``run_suite``: on a
+        host without a GPU the port runs it with ``device="cpu"``."""
+        def build(m):
+            cluster = m.engine.ClusterConfig(num_nodes=2)
+            profs = m.workload.customer_replay_suite(4)
+            strategies = {name: m.replay.default_strategies()[name]
+                          for name in ("none", "static_rr", "dyskew")}
+            res = m.replay.compare_suites(profs, cluster, strategies, seed=3, **m.dev)
+            assert list(res) == list(strategies)
+            return [r for name in strategies for r in res[name].results]
+        ref, port = run_both(monkeypatch, build, min_ticks=1)
+        assert_results_equal(ref, port)
+
     def test_default_device_needs_a_gpu(self):
         import torch
 
