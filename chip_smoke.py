@@ -13,6 +13,16 @@ prompts of 1024 tokens and 32 greedy decode steps through
 whose 24 MoE layers run the three dispatch kernels, and ``mamba2-1.3b``,
 whose 48 Mamba-2 layers run the state-scan kernel in every prefill.
 
+The ``families`` phase serves the other model families the same way, at
+full width: ``whisper-base`` whole (8 prompts of 224 tokens against 8 ×
+1500 encoder frames; in float32 its cached prefill and 3 decode steps are
+held to its uncached forward), ``pixtral-12b`` whole (256 patch positions
+a prompt), ``qwen1.5-32b`` with 32 of its 64 layers and its int8 KV cache
+(beside a bf16-cache run of the same tokens) and ``kimi-k2-1t-a32b`` with
+1 of its 61 layers, whose 384 experts run the three MoE kernels (held
+against the plain versions on the same prompt); then these four configs and
+granite-20b, chatglm3-6b and starcoder2-3b, reduced, card against host.
+
 Then it holds the card against the host on the DySkew link and the
 Snowpark UDF simulator, in one process: ``AdaptiveLink.step`` and every
 planner at 32 × 4,096 and 1,024 × 1,048,576 items (two card runs must be
@@ -41,6 +51,8 @@ Standard output is one JSON object per line:
     {"phase": "moe", ...}        moe_apply, kernel path against plain path
     {"phase": "mamba", ...}      one Mamba-2 layer, kernel scan against plain
     {"phase": "serve", ...}      per model: rates, memory, launches
+    {"phase": "families", ...}   per model of the other families, as serve, with its checks
+    {"phase": "families_reduced"} seven configs reduced, card against host
     {"phase": "profile", ...}    only with --profile: device time by kernel
     {"phase": "link", ...}       AdaptiveLink.step and the planners, card against host
     {"phase": "sim", ...}        Fig. 4, 256 tenants, faults, pipeline, card against host
@@ -83,6 +95,7 @@ FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, outside the tensor cores
 
 MOE_ARCH = "granite-moe-1b-a400m"
 SSM_ARCH = "mamba2-1.3b"
+KIMI_ARCH = "kimi-k2-1t-a32b"
 PREFILL_BATCH, PREFILL_LEN, DECODE_STEPS = 8, 1024, 32
 EP_SHARDS = 8
 
@@ -488,16 +501,17 @@ def served_scan_inputs(torch, gen):
     return states, decay
 
 
-def main_path_plan(torch, gen, tokens: int, d: int, E: int, k: int, dtype):
-    """Inputs of the three kernels as one MoE layer of the served model
-    makes them: router logits of random activations, the picks' expert ids,
-    and the routing plan at the uniform capacity."""
+def main_path_plan(torch, gen, arch, tokens: int, dtype):
+    """Inputs of the three kernels as one MoE layer of ``arch`` makes them:
+    router logits of random activations, the picks' expert ids, and the
+    routing plan at the uniform capacity."""
     from repro_torch.config.base import get_config
     from repro_torch.kernels.histogram.ref import load_histogram_ref
     from repro_torch.kernels.topk_gating.ref import topk_gating_ref
     from repro_torch.models.layers.moe import capacities, dispatch_plan
 
-    cfg = get_config(MOE_ARCH)
+    cfg = get_config(arch)
+    d, E, k = cfg.d_model, cfg.moe.num_experts, cfg.moe.top_k
     x = torch.randn((tokens, d), generator=gen, device="cuda", dtype=torch.float32).to(dtype)
     router = (0.02 * torch.randn((d, E), generator=gen, device="cuda")).to(dtype)
     logits = x @ router
@@ -525,9 +539,9 @@ def phase_kernel_checks(torch):
         return torch.randint(lo, hi, (n,), generator=gen, device="cuda", dtype=torch.int32)
 
     # ---- the main path's shapes: one MoE layer at prefill and at decode
-    E, k, d = 32, 8, 1024
+    E, k = 32, 8
     for label, tokens in (("prefill", PREFILL_BATCH * PREFILL_LEN), ("decode", PREFILL_BATCH)):
-        x, logits, flat_e, src, valid = main_path_plan(torch, gen, tokens, d, E, k, torch.bfloat16)
+        x, logits, flat_e, src, valid = main_path_plan(torch, gen, MOE_ARCH, tokens, torch.bfloat16)
         cases.append(gating_case(torch, f"{label}_bf16", logits, k, timed=True))
         check(cases[-1]["path"] == "group", f"gating {label}: the served shape must take the group path")
         cases.append(gating_case(torch, f"{label}_bf16_warp", logits, k, False, general=True))
@@ -537,6 +551,18 @@ def phase_kernel_checks(torch):
         cases.append(dispatch_case(torch, f"{label}_f32", x.float(), src, valid, timed=True, controls=served))
         del x, logits, flat_e, src, valid
     torch.cuda.empty_cache()
+
+    # ---- kimi-k2's MoE layer (the families phase): 384 experts, top-8,
+    # d_model 7168; the gating takes the warp path (a row is 48 vectors).
+    E, k = 384, 8
+    for label, tokens in (("kimi_prefill", PREFILL_BATCH * PREFILL_LEN), ("kimi_decode", PREFILL_BATCH)):
+        x, logits, flat_e, src, valid = main_path_plan(torch, gen, KIMI_ARCH, tokens, torch.bfloat16)
+        cases.append(gating_case(torch, f"{label}_bf16", logits, k, timed=True))
+        check(cases[-1]["path"] == "warp", f"gating {label}: 384 experts must take the warp path")
+        cases.append(histogram_case(torch, label, flat_e, E, timed=True))
+        cases.append(dispatch_case(torch, f"{label}_bf16", x, src, valid, timed=True))
+        del x, logits, flat_e, src, valid
+        torch.cuda.empty_cache()
 
     # ---- awkward shapes.  float32 logits sit on a grid of 1/64, so that two
     # logits are equal (a tie, which must go to the lower index) or far
@@ -651,6 +677,25 @@ class Recorder:
         return call
 
 
+def compare_dispatch(torch, kern, plain, link_k, link_p, metrics_k, metrics_p, where):
+    """The two Recorders' last dispatch, step by step, and what it left:
+    picks, counts, the plan, the buffer, the link states and the routing
+    metrics equal."""
+    check(torch.equal(kern.last["gating"][1][1], plain.last["gating"][1][1]), f"{where}: picks")
+    check(torch.equal(kern.last["histogram"][1], plain.last["histogram"][1]), f"{where}: counts")
+    # The dispatch step's inputs ARE the plan: which slot is fed (valid,
+    # hence keep) and by which token (src).
+    (_, src_k, valid_k), buf_k = kern.last["dispatch"]
+    (_, src_p, valid_p), buf_p = plain.last["dispatch"]
+    check(torch.equal(valid_k, valid_p), f"{where}: keep")
+    check(torch.equal(src_k[valid_k], src_p[valid_p]), f"{where}: slots")
+    check(torch.equal(buf_k, buf_p), f"{where}: buffer")
+    for key in ("state", "strikes", "transitions", "tick"):
+        check(torch.equal(link_k[key], link_p[key]), f"{where}: link {key}")
+    for key in ("moe_dropped_frac", "moe_distribute_frac", "moe_shard_imbalance"):
+        check(float(metrics_k[key]) == float(metrics_p[key]), f"{where}: {key}")
+
+
 def phase_moe(torch):
     import numpy as np
 
@@ -693,22 +738,10 @@ def phase_moe(torch):
                 y_p, st_p, m_p = moe.moe_apply(p, x, cfg=cfg, state=st_p, ctx=ctx, ops=plain.ops)
                 torch.cuda.synchronize()
                 where = f"moe alpha={alpha} {mode} step {step}"
-                check(torch.equal(kern.last["gating"][1][1], plain.last["gating"][1][1]), f"{where}: picks")
-                check(torch.equal(kern.last["histogram"][1], plain.last["histogram"][1]), f"{where}: counts")
-                # The dispatch step's inputs ARE the plan: which slot is fed
-                # (valid, hence keep) and by which token (src).
-                (_, src_k, valid_k), _ = kern.last["dispatch"]
-                (_, src_p, valid_p), _ = plain.last["dispatch"]
-                check(torch.equal(valid_k, valid_p), f"{where}: keep")
-                check(torch.equal(src_k[valid_k], src_p[valid_p]), f"{where}: slots")
-                check(torch.equal(kern.last["dispatch"][1], plain.last["dispatch"][1]), f"{where}: buffer")
-                for key in ("state", "strikes", "transitions", "tick"):
-                    check(torch.equal(st_k["link"][key], st_p["link"][key]), f"{where}: link {key}")
+                compare_dispatch(torch, kern, plain, st_k["link"], st_p["link"], m_k, m_p, where)
                 for key, v in st_k["link"]["metrics"].items():
                     check(torch.equal(v, st_p["link"]["metrics"][key]), f"{where}: link metric {key}")
                 check(torch.equal(st_k["ema_loads"], st_p["ema_loads"]), f"{where}: ema_loads")
-                for key in ("moe_dropped_frac", "moe_distribute_frac"):
-                    check(float(m_k[key]) == float(m_p[key]), f"{where}: {key}")
                 # Same picks, same buffer: y differs only through the
                 # renormalised weights' last bits (rtol 1e-5 / atol 1e-6 there).
                 check(torch.allclose(y_k, y_p, rtol=1e-4, atol=1e-5), f"{where}: y")
@@ -796,23 +829,36 @@ def phase_mamba(torch):
 # --------------------------------------------------------------------- #
 
 
-def served_model(torch, arch):
-    """The full model with random weights from a seed, its prompt and its
-    two serving steps."""
+def served_model(torch, arch, layers=None, prompt=PREFILL_LEN):
+    """The model with random weights from a seed (``layers`` of its depth
+    where given), the inputs of its prompt and its two serving steps: 8
+    prompts of ``prompt`` tokens, with the encoder-decoder's frames and the
+    VLM's patch embeddings drawn from the same generator."""
+    import dataclasses
+
     from repro_torch.config.base import get_config
     from repro_torch.models.layers.moe import SpmdCtx
     from repro_torch.models.model_api import build
     from repro_torch.train.step import make_decode_step, make_prefill_step
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build(cfg)
     ctx = SpmdCtx(num_groups=1, num_ep_shards=EP_SHARDS)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(gen)
-    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN), generator=gen,
-                           device="cuda", dtype=torch.int32)
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, prompt), generator=gen,
+                                      device="cuda", dtype=torch.int32)}
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.randn((PREFILL_BATCH, cfg.encoder_len, cfg.d_model), generator=gen,
+                                       device="cuda")
+    if cfg.family == "vlm":
+        inputs["patches"] = torch.randn((PREFILL_BATCH, cfg.num_patches, cfg.d_model), generator=gen,
+                                        device="cuda")
+    torch.cuda.empty_cache()   # the float32 draws' temporaries
     torch.cuda.synchronize()
-    return model, ctx, params, tokens, make_prefill_step(model, ctx), make_decode_step(model, ctx)
+    return model, ctx, params, inputs, make_prefill_step(model, ctx), make_decode_step(model, ctx)
 
 
 def expected_launches(cfg):
@@ -829,61 +875,73 @@ def expected_launches(cfg):
             "ssd_state_scan": n_mamba}
 
 
+def serve_pass(torch, served, forced=None):
+    """One prefill and DECODE_STEPS decode steps, greedy or fed ``forced``
+    tokens: (state, logits per step, tokens fed, prefill s, decode s)."""
+    model, _, params, inputs, prefill, decode = served
+    B, prompt = inputs["tokens"].shape
+    state = model.decode_state_init(B, prompt + DECODE_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, state, inputs)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    all_logits, toks = [logits], []
+    t0 = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32) if forced is None else forced[i]
+        toks.append(tok)
+        logits, state = decode(params, state, tok)
+        all_logits.append(logits)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return state, all_logits, toks, prefill_s, decode_s
+
+
 def phase_serve(torch, served):
+    """An uncounted and a counted serve pass; returns (launch counts, the
+    row to emit, the counted pass)."""
     from repro_torch import kernels
     from repro_torch.models import transformer
+    from repro_torch.models.layers.moe import capacities
 
-    model, ctx, params, tokens, prefill, decode = served
+    model, ctx, params, inputs, _, _ = served
     cfg = model.cfg
-
-    def serve_once():
-        state = model.decode_state_init(PREFILL_BATCH, PREFILL_LEN + DECODE_STEPS)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, state = prefill(params, state, {"tokens": tokens})
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        all_logits, toks = [logits], []
-        t0 = time.perf_counter()
-        for _ in range(DECODE_STEPS):
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            toks.append(tok)
-            logits, state = decode(params, state, tok)
-            all_logits.append(logits)
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-        return state, all_logits, toks, prefill_s, decode_s
+    B, prompt = inputs["tokens"].shape
 
     # A first, uncounted pass pays the one-off costs (library handles, the
     # allocator's first blocks), so that the counted pass is a steady one.
-    serve_once()
+    serve_pass(torch, served)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    state, all_logits, toks, prefill_s, decode_s = serve_once()
+    run = serve_pass(torch, served)
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    state, all_logits, toks, prefill_s, decode_s = run
 
     want = expected_launches(cfg)
     check(set(counts) == set(want), f"serve: kernels {sorted(counts)}")
     for name, n in counts.items():
         check(n == want[name], f"serve {cfg.name}: {name} launched {n} times, expected {want[name]}")
-    check(int(state["pos"]) == PREFILL_LEN + DECODE_STEPS, "serve: pos")
+    check(int(state["pos"]) == prompt + DECODE_STEPS, "serve: pos")
     stacked = torch.cat(all_logits, dim=1).float()
-    check(stacked.shape == (PREFILL_BATCH, 1 + DECODE_STEPS, cfg.padded_vocab), "serve: logits shape")
+    check(stacked.shape == (B, 1 + DECODE_STEPS, cfg.padded_vocab), "serve: logits shape")
     check(bool(torch.isfinite(stacked).all()), "serve: logits not finite")
     check(bool((stacked[..., cfg.vocab_size:] == torch.finfo(transformer.model_dtype(cfg)).min).all()),
           "serve: pad-vocab logits not masked")
     check(all(int(t.max()) < cfg.vocab_size and int(t.min()) >= 0 for t in toks), "serve: token out of vocab")
     distinct = len({tuple(t.flatten().tolist()) for t in toks})
     check(distinct > 1, "serve: decode repeats one token")
+    del stacked
 
     row = {
-        "phase": "serve", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-        "vocab": cfg.vocab_size, "dtype": cfg.dtype, "params": model.num_params(),
-        "prefill_tokens": PREFILL_BATCH * PREFILL_LEN, "prefill_s": prefill_s,
-        "prefill_tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+        "phase": "serve", "arch": cfg.name, "family": cfg.family, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+        "params": model.num_params(), "batch": B, "prompt": prompt,
+        "prefill_tokens": B * prompt, "prefill_s": prefill_s,
+        "prefill_tokens_per_s": B * prompt / prefill_s,
         "decode_steps": DECODE_STEPS, "decode_s": decode_s,
-        "decode_tokens_per_s": PREFILL_BATCH * DECODE_STEPS / decode_s,
+        "decode_tokens_per_s": B * DECODE_STEPS / decode_s,
         "decode_ms_per_step": decode_s / DECODE_STEPS * 1e3,
         "peak_memory_bytes": peak, "launches": counts, "distinct_decode_steps": distinct,
     }
@@ -891,22 +949,23 @@ def phase_serve(torch, served):
         # Link telemetry: Model.prefill drops the new link states, so one
         # more forward with carried state reads them (after the counts were
         # taken).
-        _, aux = transformer.forward(params, tokens, cfg=cfg, ctx=ctx, dyskew=model.dyskew_init(ctx))
+        _, aux = transformer.forward(params, inputs["tokens"], cfg=cfg, ctx=ctx, dyskew=model.dyskew_init(ctx))
         metrics = {k: float(v) for k, v in aux["metrics"].items()}
         check(all(v == v for v in metrics.values()), "serve: a metric is NaN")
         link = aux["dyskew"]["l0"]["link"]
         check(link["tick"].tolist() == [1] * transformer.num_blocks(cfg), "serve: link tick")
-        row.update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+        row.update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k, ep_shards=ctx.num_ep_shards,
+                   prefill_c_buf=capacities(cfg, B * prompt)[1], decode_c_buf=capacities(cfg, B)[1],
                    moe_dropped_frac=metrics["moe_dropped_frac"],
                    moe_distribute_frac=metrics["moe_distribute_frac"],
                    moe_shard_imbalance=metrics["moe_shard_imbalance"])
+        del aux
     if cfg.mamba is not None:
         row.update(ssm_heads=cfg.mamba.num_heads(cfg.d_model), d_state=cfg.mamba.d_state,
                    chunk=cfg.mamba.chunk,
                    ssm_state_bytes=sum(v["ssm"].numel() * 4 for k, v in state.items()
                                        if k.startswith("ssm_l")))
-    emit(row)
-    return counts
+    return counts, row, run
 
 
 def profiled(torch, arch, what, steps, window):
@@ -952,14 +1011,15 @@ def profiled(torch, arch, what, steps, window):
 
 def phase_profile(torch, served, decode_steps: int = 4):
     """Optional: one prefill and a few decode steps, traced."""
-    model, _, params, tokens, prefill, decode = served
+    model, _, params, inputs, prefill, decode = served
+    B, prompt = inputs["tokens"].shape
 
-    state = model.decode_state_init(PREFILL_BATCH, PREFILL_LEN + decode_steps)
-    logits, state = prefill(params, state, {"tokens": tokens})
+    state = model.decode_state_init(B, prompt + decode_steps)
+    logits, state = prefill(params, state, inputs)
 
     def prefill_window():
-        fresh = model.decode_state_init(PREFILL_BATCH, PREFILL_LEN + decode_steps)
-        prefill(params, fresh, {"tokens": tokens})
+        fresh = model.decode_state_init(B, prompt + decode_steps)
+        prefill(params, fresh, inputs)
 
     def decode_window():
         nonlocal logits, state
@@ -969,6 +1029,375 @@ def phase_profile(torch, served, decode_steps: int = 4):
 
     profiled(torch, model.cfg.name, "prefill", 1, prefill_window)
     profiled(torch, model.cfg.name, "decode", decode_steps, decode_window)
+
+
+# --------------------------------------------------------------------- #
+# Phase 6b: the other model families at full width
+# --------------------------------------------------------------------- #
+
+#: (arch, layers kept or None for all, prompt tokens, the cut and its reason)
+FAMILIES = (
+    ("whisper-base", None, 224,
+     "whole; 224 + 32 tokens lie within Whisper's 448-token decoder context"),
+    ("pixtral-12b", None, PREFILL_LEN, "whole: 12.25 B parameters, 24.5 GB in bf16"),
+    ("qwen1.5-32b", 32, PREFILL_LEN,
+     "32 of 64 layers: all 64 hold 70.4 GB of bf16 weights, which leaves under 10 GB of the "
+     "80 GB card for the cache, the activations and the 2.5 GB of prefill logits"),
+    (KIMI_ARCH, 1, PREFILL_LEN,
+     "1 of 61 layers: one layer's experts are 34 GB in bf16 and drawing one expert leaf takes a "
+     "22.5 GB float32 temporary, so two layers do not fit"),
+)
+#: The registry's seven configs besides granite-moe-1b-a400m, mamba2-1.3b and
+#: jamba-1.5-large-398b, run reduced on card and host.
+REDUCED_IDS = ("whisper-base", "granite-20b", "chatglm3-6b", "starcoder2-3b", "qwen1.5-32b",
+           "pixtral-12b", KIMI_ARCH)
+#: tests/test_arch_smoke.py's bands: a cached path against the uncached
+#: forward, and the same for an int8 cache (card against host here too).
+SMOKE_RTOL, SMOKE_ATOL = 2e-2, 2e-3
+INT8_RTOL, INT8_ATOL = 0.5, 0.25
+#: An int8 cache's float32 scales, card against host: amax / 127 of keys
+#: and values that two float32 orders of summation computed.
+SCALE_RTOL = 1e-4
+CHECK_STEPS = 3
+REDUCED_BATCH, REDUCED_SEQ, REDUCED_PROMPT = 2, 32, 16
+
+
+#: The held comparisons' weights.  ``repro``'s init takes a leaf's first
+#: axis as its fan-in, and for a stacked block leaf that is the layer
+#: count: at full width every block matrix is drawn 9 to 30 times too large,
+#: the softmaxes saturate and the random model amplifies last bits.  These
+#: leaves are rescaled to the fan-in of their inputs, the axes after the
+#: stack's (one, two for ``wo``'s heads and head_dim).
+INPUT_AXES = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1, "w_down": 1}
+
+
+def at_input_fan_in(params) -> None:
+    """Rescales, in place, every stacked block matrix of ``params`` from the
+    layer count's fan-in to that of its inputs (INPUT_AXES)."""
+    import math
+
+    for key, leaf in params.items():
+        if isinstance(leaf, dict):
+            at_input_fan_in(leaf)
+        elif key in INPUT_AXES:
+            fan_in = math.prod(leaf.shape[1:1 + INPUT_AXES[key]])
+            leaf.mul_(math.sqrt(leaf.shape[0] / fan_in))
+
+
+def band_ratio(got, want, rtol, atol) -> float:
+    """The largest |got - want| / (atol + rtol |want|): 1 or less inside
+    the band.  One leading row at a time, so that a prefill's logits are
+    never copied whole into float32."""
+    return max(float(((g.float() - w.float()).abs() / (atol + rtol * w.float().abs())).max())
+               for g, w in zip(got, want))
+
+
+def max_gap(got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+
+
+def whisper_check(torch, prompt):
+    """whisper-base whole on the card: the float32 cached prefill of a
+    prompt shorter than the encoder, and CHECK_STEPS decode steps, against
+    the port's own float32 uncached forward over the same tokens, at
+    test_arch_smoke's band (rtol 2e-2, atol 2e-3).  A reading is
+    ``band_ratio``: 1 or less inside the band.
+
+    Held at 1, with the weights at the fan-in of their inputs
+    (``at_input_fan_in``).  Two controls of the same weights must read over
+    1, so that the band is seen to reject a fault and a lesser precision:
+    the reference's cached prefill (the prompt's cross attention over its
+    first ``prompt`` frames, computed as the uncached forward over them) and
+    the same cached path in bfloat16.  At ``repro``'s own init the random
+    model is chaotic and two float32 orders of summation part; that run is
+    reported, not held."""
+    import dataclasses
+
+    from repro_torch.config.base import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.model_api import build
+    from repro_torch.models.param import tree_map
+
+    cfg = dataclasses.replace(get_config("whisper-base"), dtype="float32")
+    check(prompt < cfg.encoder_len, "whisper: the check is of a prompt shorter than the encoder")
+    model = build(cfg)
+    V, end = cfg.vocab_size, prompt + CHECK_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    tokens = torch.randint(0, V, (PREFILL_BATCH, end), generator=gen, device="cuda", dtype=torch.int32)
+    frames = torch.randn((PREFILL_BATCH, cfg.encoder_len, cfg.d_model), generator=gen, device="cuda")
+
+    def cached(dtype, p):
+        m = build(dataclasses.replace(cfg, dtype=dtype))
+        state = m.decode_state_init(PREFILL_BATCH, end)
+        logits, state = m.prefill(p, {"tokens": tokens[:, :prompt], "frames": frames}, state)
+        out = [logits[..., :V]]
+        for t in range(prompt, end):
+            logits, state = m.decode_step(p, state, tokens[:, t:t + 1])
+            out.append(logits[..., :V])
+        return out
+
+    def uncached(p, frames_seen):
+        """The uncached forward; the prefill's cross attention sees the first
+        ``frames_seen`` frames of the encoder's output."""
+        enc_out = encdec.encode(p, frames, cfg)[:, :frames_seen]
+        full, _ = encdec.forward(p, tokens, cfg=cfg, enc_out=enc_out)
+        return [full[:, :prompt, :V]] + [full[:, t:t + 1, :V] for t in range(prompt, end)]
+
+    def reading(got, want):
+        return {"band_ratio": [band_ratio(g, w, SMOKE_RTOL, SMOKE_ATOL) for g, w in zip(got, want)],
+                "max_abs_err": [max_gap(g, w) for g, w in zip(got, want)],
+                "logit_scale": max(float(w.abs().max()) for w in want)}
+
+    out = {"dtype": "float32", "prompt": prompt, "encoder_len": cfg.encoder_len, "decode_steps": CHECK_STEPS,
+           "rtol": SMOKE_RTOL, "atol": SMOKE_ATOL}
+    out["reference_init"] = reading(cached("float32", params), uncached(params, cfg.encoder_len))
+    at_input_fan_in(params)
+    want = uncached(params, cfg.encoder_len)
+    held = out["at_input_fan_in"] = reading(cached("float32", params), want)
+    check(max(held["band_ratio"]) <= 1.0, f"whisper float32: the cached path leaves the uncached forward: {held}")
+    # The controls: the prefill over the first frames (its decode steps
+    # would carry the same fault on), and the whole cached path in bf16.
+    first = reading(uncached(params, prompt)[:1], want[:1])
+    bf16 = reading(cached("bfloat16", tree_map(lambda t: t.to(torch.bfloat16), params)), want)
+    out["controls"] = {"first_frames": first, "bfloat16": bf16}
+    for name, ctl in out["controls"].items():
+        check(max(ctl["band_ratio"]) > 1.0, f"whisper control {name} passes the band: {ctl}")
+    del params, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def kv_bytes(state):
+    return sum(t.numel() * t.element_size() for key, entry in state.items()
+               if key.startswith("kv") for t in entry.values())
+
+
+def int8_cache_check(torch, served, run):
+    """The int8 run's prompts and greedy tokens again through a cache of the
+    model dtype: the two caches' bytes, the largest logit gap, its
+    ``band_ratio`` at test_arch_smoke's int8 band and the share of greedy
+    tokens the two agree on.  At ``repro``'s init (``run``, reported: the
+    random model is chaotic there), then, held at the band, with the served
+    weights rescaled in place to the fan-in of their inputs; and a control
+    with a fault of the int8 arm, which the band must reject."""
+    import dataclasses
+
+    from repro_torch.models.model_api import build
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    model, ctx, params, inputs, _, _ = served
+    model_m = build(dataclasses.replace(model.cfg, kv_cache_dtype="model"))
+    served_m = (model_m, ctx, params, inputs, make_prefill_step(model_m, ctx), make_decode_step(model_m, ctx))
+
+    def pair(run8):
+        _, logits8, toks, _, _ = run8
+        state_m, logits_m, _, prefill_s, decode_s = serve_pass(torch, served_m, forced=toks)
+        agree = torch.cat([(a.argmax(-1) == b.argmax(-1)).flatten() for a, b in zip(logits8, logits_m)])
+        row = {"max_logit_gap_by_step": [max_gap(a, b) for a, b in zip(logits8, logits_m)],
+               "band_ratio_by_step": [band_ratio(a, b, INT8_RTOL, INT8_ATOL) for a, b in zip(logits8, logits_m)],
+               "logit_scale": max(float(b.abs().max()) for b in logits_m),
+               "greedy_agree_share": float(agree.float().mean())}
+        row.update(max_logit_gap=max(row["max_logit_gap_by_step"]), band_ratio=max(row["band_ratio_by_step"]))
+        return row, state_m, prefill_s, decode_s
+
+    reference, state_m, prefill_s, decode_s = pair(run)
+    ratio = kv_bytes(run[0]) / kv_bytes(state_m)
+    # int8 values and a float32 scale per head vector against values of the
+    # model dtype: (128 + 4) / 256 for qwen's bf16 heads of 128.
+    hd, elem = model.cfg.head_dim_, next(iter(state_m["kv_l0"].values())).element_size()
+    check(abs(ratio - (hd + 4) / (hd * elem)) < 1e-9, f"int8 cache: {ratio} of the model-dtype cache's bytes")
+    out = {"cache_bytes_int8": kv_bytes(run[0]), "cache_bytes_model": kv_bytes(state_m), "bytes_ratio": ratio,
+           "model_cache_prefill_s": prefill_s, "model_cache_decode_ms_per_step": decode_s / DECODE_STEPS * 1e3,
+           "rtol": INT8_RTOL, "atol": INT8_ATOL, "reference_init": reference}
+    del state_m
+    torch.cuda.empty_cache()
+    at_input_fan_in(params)
+    run8 = serve_pass(torch, served)
+    held, state_m, _, _ = pair(run8)
+    out["at_input_fan_in"] = held
+    check(held["band_ratio"] <= 1.0, f"int8 cache: logits leave the model-dtype cache's: {held}")
+    del state_m
+    torch.cuda.empty_cache()
+    # The control: a fault of the int8 arm, which the band must reject.  The
+    # prompt's scales are rolled by half the prompt, so that each position's
+    # int8 values are read with the scales of the other query chunk's
+    # position, and the decode steps are run again on that cache.
+    _, _, toks, _, _ = run8
+    model_i, _, _, _, prefill, decode = served
+    B, prompt = inputs["tokens"].shape
+    state = model_i.decode_state_init(B, prompt + DECODE_STEPS)
+    _, state = prefill(params, state, inputs)
+    for key, entry in state.items():
+        if key.startswith("kv"):
+            for name in ("k_scale", "v_scale"):
+                entry[name][:, :, :prompt] = torch.roll(entry[name][:, :, :prompt], prompt // 2, dims=2)
+    rolled = []
+    for tok in toks:
+        logits, state = decode(params, state, tok)
+        rolled.append(logits)
+    good = run8[1][1:]
+    out["control_rolled_scales"] = {"band_ratio": band_ratio(rolled, good, INT8_RTOL, INT8_ATOL),
+                                    "max_logit_gap": max_gap(rolled, good)}
+    check(out["control_rolled_scales"]["band_ratio"] > 1.0,
+          f"int8 cache: the rolled-scales control passes the band: {out['control_rolled_scales']}")
+    del state, rolled, good, run8, served_m
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_path_check(torch, served):
+    """One forward of the prompt through the kernels and through the plain
+    versions, with the same carried link state, as the moe phase does for
+    granite: router logits, picks, counts, plan, buffer, link states and
+    metrics equal, gate weights at the gating check's band.  Then the MoE
+    layer on the hidden state it was given, both ways: the outputs differ
+    only where a gate weight's float32 last bits move its bfloat16 rounding,
+    so they are held to two bfloat16 steps (2^-7) of the largest |y|."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import moe
+    from repro_torch.models.param import tree_map
+
+    model, ctx, params, inputs, _, _ = served
+    cfg = model.cfg
+    tokens = inputs["tokens"]
+    dk = model.dyskew_init(ctx)
+    kern, plain = Recorder(moe.KERNEL_OPS), Recorder(moe.PLAIN_OPS)
+    logits_k, aux_k = transformer.forward(params, tokens, cfg=cfg, ctx=ctx, dyskew=dk, ops=kern.ops)
+    logits_p, aux_p = transformer.forward(params, tokens, cfg=cfg, ctx=ctx, dyskew=dk, ops=plain.ops)
+    torch.cuda.synchronize()
+    where = f"{cfg.name} kernel path"
+    (router_k, _), (w_k, _) = kern.last["gating"]
+    (router_p, _), (w_p, _) = plain.last["gating"]
+    check(torch.equal(router_k, router_p), f"{where}: router logits")
+    check(torch.allclose(w_k, w_p, rtol=1e-5, atol=1e-6), f"{where}: gate weights")
+    compare_dispatch(torch, kern, plain, aux_k["dyskew"]["l0"]["link"], aux_p["dyskew"]["l0"]["link"],
+                     aux_k["metrics"], aux_p["metrics"], where)
+    (x_k, _, valid_k), _ = kern.last["dispatch"]
+    logit_gap = float((logits_k.float() - logits_p.float()).abs().max())
+    agree = float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean())
+    slots, valid_frac = int(valid_k.numel()), float(valid_k.float().mean())
+    del logits_k, logits_p, aux_k, aux_p, kern, plain
+
+    B, S = tokens.shape
+    p_moe = tree_map(lambda a: a[0], params["blocks"]["l0"]["moe"])
+    st = tree_map(lambda a: a[0], dk["l0"])
+    h = x_k.reshape(B, S, cfg.d_model)
+    y_k, _, _ = moe.moe_apply(p_moe, h, cfg=cfg, state=st, ctx=ctx)
+    y_p, _, _ = moe.moe_apply(p_moe, h, cfg=cfg, state=st, ctx=ctx, ops=moe.PLAIN_OPS)
+    y_err = float((y_k.float() - y_p.float()).abs().max())
+    y_scale = float(y_p.float().abs().max())
+    check(bool(torch.isfinite(y_k).all()), f"{where}: y not finite")
+    check(y_err <= 2.0 ** -7 * y_scale, f"{where}: y {y_err} off the plain path (scale {y_scale})")
+    out = {"tokens": B * S, "slots": slots, "valid_frac": valid_frac, "plan_equal": True,
+           "buffer_equal": True, "gate_weight_max_abs_err": float((w_k - w_p).abs().max()),
+           "y_max_abs_err": y_err, "y_scale": y_scale, "y_band": 2.0 ** -7,
+           "logit_max_abs_gap": logit_gap, "greedy_agree_share": agree}
+    del y_k, y_p, h, x_k
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_card_host(torch, arch):
+    """The reduced config in float32: prefill REDUCED_PROMPT tokens and
+    CHECK_STEPS decode steps on the card and on the host from the same
+    weights and inputs, logits within test_arch_smoke's bands (the int8 band
+    where the cache is int8).  Those are its bands for a cached path against
+    the uncached forward, far wider than card against host needs, so an
+    int8 cache is held itself: its values one by one (a card-side
+    ``x / scale`` may round to the other side of a half, so those that
+    differ are counted, and none may differ by more than one) and its
+    float32 scales within SCALE_RTOL."""
+    import dataclasses
+
+    from repro_torch.config.base import get_config
+    from repro_torch.models.model_api import build
+    from repro_torch.models.param import tree_map
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    model = build(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, device=HOST)
+    shape = (REDUCED_BATCH, REDUCED_SEQ)
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=gen, dtype=torch.int32)}
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.randn((REDUCED_BATCH, cfg.encoder_len, cfg.d_model), generator=gen)
+    if cfg.family == "vlm":
+        inputs["patches"] = torch.randn((REDUCED_BATCH, cfg.num_patches, cfg.d_model), generator=gen)
+    runs = {}
+    for dev in ("cuda", HOST):
+        p = tree_map(lambda t: t.to(dev), params)
+        inp = {k: v.to(dev) for k, v in inputs.items()}
+        state = model.decode_state_init(REDUCED_BATCH, REDUCED_SEQ, device=dev)
+        logits, state = model.prefill(p, dict(inp, tokens=inp["tokens"][:, :REDUCED_PROMPT]), state)
+        out = [logits.cpu()]
+        for t in range(REDUCED_PROMPT, REDUCED_PROMPT + CHECK_STEPS):
+            logits, state = model.decode_step(p, state, inp["tokens"][:, t:t + 1])
+            out.append(logits.cpu())
+        runs[dev] = (out, tree_map(lambda t: t.cpu(), state))
+    int8 = cfg.kv_cache_dtype == "int8"
+    rtol, atol = (INT8_RTOL, INT8_ATOL) if int8 else (SMOKE_RTOL, SMOKE_ATOL)
+    errs = []
+    for step, (a, b) in enumerate(zip(runs["cuda"][0], runs[HOST][0])):
+        check(torch.allclose(a, b, rtol=rtol, atol=atol), f"{arch} reduced: step {step} card against host")
+        errs.append(float((a - b).abs().max()))
+    row = {"arch": arch, "family": cfg.family, "kv_cache_dtype": cfg.kv_cache_dtype, "rtol": rtol,
+           "atol": atol, "max_abs_err": errs}
+    if int8:
+        cache = {}
+        for key, entry in runs["cuda"][1].items():
+            if not key.startswith("kv"):
+                continue
+            for name in ("k", "v"):
+                diff = (entry[name].to(torch.int32) - runs[HOST][1][key][name].to(torch.int32)).abs()
+                check(int(diff.max()) <= 1, f"{arch} reduced: {key}/{name} int8 values more than a step apart")
+                sc_a, sc_b = entry[f"{name}_scale"], runs[HOST][1][key][f"{name}_scale"]
+                rel = float(((sc_a - sc_b).abs() / sc_b.abs().clamp(min=1e-30)).max())
+                check(rel <= SCALE_RTOL, f"{arch} reduced: {key}/{name} scales {rel} apart")
+                cache[f"{key}/{name}"] = {"values": diff.numel(), "differ": int((diff > 0).sum()),
+                                          "scale_max_rel_diff": rel, "scale_rtol": SCALE_RTOL}
+        row["int8_cache"] = cache
+    return row
+
+
+def phase_families(torch, profile=False):
+    """The four served configs of the other families at full width, then the
+    seven configs of REDUCED_IDS reduced, card against host.  Returns kimi-k2's
+    launch counts."""
+    from repro_torch.config.base import get_config
+
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    counts = {}
+    for arch, layers, prompt, cut in FAMILIES:
+        t0 = time.perf_counter()
+        served = served_model(torch, arch, layers, prompt)
+        build_s = time.perf_counter() - t0
+        got, row, run = phase_serve(torch, served)
+        if profile:
+            phase_profile(torch, served)
+        cfg = served[0].cfg
+        row.update(phase="families", card=smi, published_layers=get_config(arch).num_layers, cut=cut,
+                   build_s=build_s, kv_cache_dtype=cfg.kv_cache_dtype, cache_bytes=kv_bytes(run[0]))
+        if cfg.family == "encdec":
+            row["cached_against_uncached"] = whisper_check(torch, prompt)
+        if cfg.kv_cache_dtype == "int8":
+            row["int8_cache"] = int8_cache_check(torch, served, run)
+        if cfg.moe is not None:
+            for name in ("topk_gating", "load_histogram", "dispatch_gather"):
+                check(got[name] == 1 + DECODE_STEPS, f"{arch}: {name} launched {got[name]} times")
+            counts = got
+            row["kernel_path"] = moe_path_check(torch, served)
+        del run
+        row["seconds"] = time.perf_counter() - t0
+        emit(row)
+        del served
+        torch.cuda.empty_cache()
+    reduced = [reduced_card_host(torch, arch) for arch in REDUCED_IDS]
+    emit({"phase": "families_reduced", "card": smi, "dtype": "float32", "batch": REDUCED_BATCH,
+          "prompt": REDUCED_PROMPT, "decode_steps": CHECK_STEPS, "configs": reduced,
+          "seconds": time.perf_counter() - t_start})
+    return counts
 
 
 # --------------------------------------------------------------------- #
@@ -1593,7 +2022,7 @@ def phase_serving_engine(torch, card="cuda"):
     row = {"phase": "serving_engine", "device": card}
     for name, kw, make_requests in serving_configs():
         out = []
-        for dev in (card, HOST):
+        for dev in ("cuda", HOST):
             eng = ServingEngine(ServeConfig(**kw), seed=0, device=dev)
             inner, calls = eng.sched.rebalance, []
 
@@ -1922,12 +2351,15 @@ def main() -> int:
         for arch, kernels_of_path in ((MOE_ARCH, ("topk_gating", "load_histogram", "dispatch_gather")),
                                       (SSM_ARCH, ("ssd_state_scan",))):
             served = served_model(torch, arch)
-            got = phase_serve(torch, served)
+            got, row, run = phase_serve(torch, served)
+            emit(row)
             counts["serve"].update({k: got[k] for k in kernels_of_path})
             if args.profile:
                 phase_profile(torch, served)
-            del served, got
+            del served, got, run
             torch.cuda.empty_cache()
+        # kimi-k2's counts: the MoE kernels at 384 experts.
+        counts["families"] = phase_families(torch, profile=args.profile)
         phase_link(torch)
         phase_sim(torch)
         phase_data_pipeline(torch)
@@ -1955,6 +2387,10 @@ def main() -> int:
         })
         if kname == "topk_gating":
             rows[-1].update(general_ms=c["general_ms"], node_ms=c["node_ms"])
+        kimi = next((c for c in mine if c["case"] == case_name.replace("prefill", "kimi_prefill")), None)
+        if kimi is not None:
+            rows[-1]["kimi"] = {key: kimi[key] for key in (
+                "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms", "bytes")}
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

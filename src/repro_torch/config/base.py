@@ -186,11 +186,17 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
-#: Registry of architecture ids → config module names: the configs the port
-#: has so far (the rest of ``repro.configs`` comes with their model families).
+#: Registry of architecture ids → config module names.
 ARCH_MODULES = {
-    "granite-moe-1b-a400m": "granite_moe_1b",
+    "whisper-base": "whisper_base",
+    "granite-20b": "granite_20b",
+    "chatglm3-6b": "chatglm3_6b",
+    "starcoder2-3b": "starcoder2_3b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "pixtral-12b": "pixtral_12b",
     "jamba-1.5-large-398b": "jamba_1_5_large",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "kimi-k2-1t-a32b": "kimi_k2",
     "mamba2-1.3b": "mamba2_1_3b",
 }
 

@@ -36,8 +36,9 @@ def params_from_numpy(tree: Any, device: DeviceLike = None, dtype: Any = torch.f
 
 def state_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     """Nested dict of numpy arrays → tensors on ``device`` with each leaf's
-    own type: int32 stays int32, float32 float32, bool bool; a bfloat16 leaf
-    (an extension type in numpy) goes through float32 and is cast back."""
+    own type: int32 stays int32, int8 int8 (an int8 KV cache), float32
+    float32, bool bool; a bfloat16 leaf (an extension type in numpy) goes
+    through float32 and is cast back."""
     dev = resolve_device(device)
 
     def leaf(a: Any) -> torch.Tensor:

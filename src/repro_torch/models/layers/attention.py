@@ -20,11 +20,20 @@ from repro_torch.models.perf_flags import get_flags
 NEG_INF = -1e30
 
 
-def quantize_kv(x: torch.Tensor):
-    raise NotImplementedError(
-        "the int8 KV cache is not ported yet: ROADMAP.md queue A, "
-        "'the other model families (int8 KV cache, encdec, VLM prefix)'"
-    )
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization per (batch, pos, kv-head) vector.
+    x: (B, S, K, hd) → (int8 values, float32 scales (B, S, K)).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    x32 = x.to(torch.float32)
+    scale = torch.clamp(x32.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    # The scale is cast to the working type before the product, as repro's
+    # chunked attention does.
+    return q.to(dtype) * scale[..., None].to(dtype)
 
 
 def attention_specs(cfg: ArchConfig) -> Dict:
@@ -43,10 +52,12 @@ def attention_specs(cfg: ArchConfig) -> Dict:
     return out
 
 
-def _project_qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig):
+def _project_qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig, kv: Optional[torch.Tensor] = None):
+    """q from ``x``; k and v from ``kv`` (cross-attention) or ``x``."""
+    src = x if kv is None else kv
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(src.dtype))
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(src.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -72,6 +83,8 @@ def chunked_attention(
     q_offset: int = 0,            # absolute position of q[0]
     kv_len: Optional[int] = None,  # valid kv prefix length
     q_chunk: int = 512,
+    k_scale: Optional[torch.Tensor] = None,   # (B, Skv, K) for int8 caches
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Softmax attention, one query chunk at a time. Returns (B,Sq,K,G,hd).
 
@@ -79,7 +92,8 @@ def chunked_attention(
     working type for the product with ``v``.  Where ``repro`` streams over
     kv chunks with running accumulators, each query chunk here takes one
     softmax over its whole kv range: the same function, one pass, so there
-    is no kv chunk size to choose.
+    is no kv chunk size to choose.  int8 ``k``/``v`` are dequantized once a
+    query chunk, over the kv range that chunk reads.
     """
     B, Sq, K, G, hd = q.shape
     Skv = k.shape[1]
@@ -96,7 +110,11 @@ def chunked_attention(
         q_pos = q_offset + q0 + torch.arange(q_chunk, dtype=torch.int32, device=q.device)
         n_kv = min(Skv, q_offset + q0 + q_chunk) if causal_skip else Skv
         k_pos = k_pos_all[:n_kv]
-        s = torch.einsum("bqkgh,bckh->bkgqc", qblk, k[:, :n_kv]).to(torch.float32)
+        kblk, vblk = k[:, :n_kv], v[:, :n_kv]
+        if kblk.dtype == torch.int8:
+            kblk = _dequantize(kblk, k_scale[:, :n_kv], qblk.dtype)
+            vblk = _dequantize(vblk, v_scale[:, :n_kv], qblk.dtype)
+        s = torch.einsum("bqkgh,bckh->bkgqc", qblk, kblk).to(torch.float32)
         mask = None
         if causal:
             mask = q_pos[:, None] >= k_pos[None, :]
@@ -106,23 +124,35 @@ def chunked_attention(
         if mask is not None:
             s = s.masked_fill_(torch.logical_not(mask), NEG_INF)
         p = torch.softmax(s, dim=-1).to(qblk.dtype)
-        outs.append(torch.einsum("bkgqc,bckh->bqkgh", p, v[:, :n_kv]))
+        outs.append(torch.einsum("bkgqc,bckh->bqkgh", p, vblk))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def decode_attention(
     q: torch.Tensor,             # (B, 1, K, G, hd)
-    k_cache: torch.Tensor,       # (B, S, K, hd)
+    k_cache: torch.Tensor,       # (B, S, K, hd) — model dtype or int8
     v_cache: torch.Tensor,
     kv_len: int,                 # valid cache length (inclusive)
+    k_scale: Optional[torch.Tensor] = None,   # (B, S, K) for int8 caches
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    """One query step against the cache.  An int8 cache enters the products
+    as int8 values cast to ``q``'s type, without its scales: scores scale
+    linearly in k, so ``k_scale`` multiplies the float32 scores, and
+    ``v_scale`` the probabilities, in ``repro``'s order."""
     hd = q.shape[-1]
-    s = torch.einsum("bqkgh,bckh->bkgqc", q * hd ** -0.5, k_cache)
+    kc = k_cache.to(q.dtype) if k_cache.dtype == torch.int8 else k_cache
+    s = torch.einsum("bqkgh,bckh->bkgqc", q * hd ** -0.5, kc)
     s = s.to(torch.float32)
+    if k_scale is not None:
+        s = s * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     pos = torch.arange(k_cache.shape[1], device=q.device)
     s = s.masked_fill_((pos >= kv_len)[None, None, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bkgqc,bckh->bqkgh", p, v_cache)
+    vc = v_cache.to(q.dtype) if v_cache.dtype == torch.int8 else v_cache
+    if v_scale is not None:
+        p = p * v_scale.permute(0, 2, 1)[:, :, None, None, :].to(p.dtype)
+    return torch.einsum("bkgqc,bckh->bqkgh", p, vc)
 
 
 def attention_apply(
@@ -132,43 +162,59 @@ def attention_apply(
     cfg: ArchConfig,
     positions: torch.Tensor,     # (S,) or (B, S)
     causal: bool = True,
-    cache: Optional[Dict] = None,  # {'k','v'}
+    cache: Optional[Dict] = None,  # {'k','v'[,'k_scale','v_scale']}
     cache_index: Optional[int] = None,              # write offset
+    kv: Optional[torch.Tensor] = None,  # cross-attention source (B, Skv, d)
     q_chunk: int = 512,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Self-attention. Returns (output (B,S,d), updated cache or None).
+    """Self-attention, or cross-attention to ``kv`` (no RoPE).  Returns
+    (output (B,S,d), updated cache or None).
 
-    MUTATES ``cache``: the fresh keys and values are written into
-    ``cache['k']`` / ``cache['v']`` in place at ``cache_index``, and the
-    returned cache holds the same tensors.
+    MUTATES ``cache``: the fresh keys and values (int8 values and float32
+    scales where the cache holds ``k_scale``) are written in place at
+    ``cache_index``, and the returned cache holds the same tensors.  The
+    query attends to every key written up to the end of this write: for a
+    cross-attention cache that is all of ``kv``, whatever the query length
+    (``repro`` attends to the first S positions only, S the query length,
+    which leaves its own uncached forward when S < Skv).
     """
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     G = H // K
 
-    q, k, v = _project_qkv(p, x, cfg)
-    pos_b = positions if positions.ndim == 2 else positions[None, :]
-    q = apply_rope(q, pos_b, cfg.rope_theta, cfg.rope_style)
-    k = apply_rope(k, pos_b, cfg.rope_theta, cfg.rope_style)
+    q, k, v = _project_qkv(p, x, cfg, kv)
+    if kv is None:
+        pos_b = positions if positions.ndim == 2 else positions[None, :]
+        q = apply_rope(q, pos_b, cfg.rope_theta, cfg.rope_style)
+        k = apply_rope(k, pos_b, cfg.rope_theta, cfg.rope_style)
 
     qg = q.reshape(B, S, K, G, hd)
 
     new_cache = None
     if cache is not None:
-        if "k_scale" in cache:
-            quantize_kv(k)
         idx = cache_index if cache_index is not None else 0
+        end = idx + k.shape[1]
+        k_scale = v_scale = None
+        if "k_scale" in cache:
+            kq, k_scale_new = quantize_kv(k)
+            vq, v_scale_new = quantize_kv(v)
+            cache["k"][:, idx:end] = kq
+            cache["v"][:, idx:end] = vq
+            cache["k_scale"][:, idx:end] = k_scale_new
+            cache["v_scale"][:, idx:end] = v_scale_new
+            k_scale, v_scale = cache["k_scale"], cache["v_scale"]
+        else:
+            cache["k"][:, idx:end] = k
+            cache["v"][:, idx:end] = v
+        new_cache = dict(cache)
         k_cache, v_cache = cache["k"], cache["v"]
-        k_cache[:, idx:idx + S] = k
-        v_cache[:, idx:idx + S] = v
-        new_cache = {"k": k_cache, "v": v_cache}
-        kv_len = idx + S
         if S == 1:
-            out = decode_attention(qg, k_cache, v_cache, kv_len)
+            out = decode_attention(qg, k_cache, v_cache, end,
+                                   k_scale=k_scale, v_scale=v_scale)
         else:
             out = chunked_attention(
                 qg, k_cache, v_cache, causal=causal, q_offset=idx,
-                kv_len=kv_len, q_chunk=q_chunk,
+                kv_len=end, q_chunk=q_chunk, k_scale=k_scale, v_scale=v_scale,
             )
     else:
         out = chunked_attention(qg, k, v, causal=causal, q_chunk=q_chunk)

@@ -1,5 +1,5 @@
-"""Unified model API: specs / init / loss / prefill / decode for the
-decoder-only families the port has."""
+"""Unified model API: specs / init / loss / prefill / decode per family,
+for all ten architectures of the registry."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import torch
 
 from repro_torch._device import DeviceLike
 from repro_torch.config.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers.moe import KERNEL_OPS, DispatchOps, SpmdCtx
 from repro_torch.models.param import tree_materialize, tree_num_params
 
@@ -21,16 +21,11 @@ MOE_AUX_COEF = 0.01
 class Model:
     cfg: ArchConfig
 
-    def __post_init__(self):
-        if self.cfg.family in ("encdec", "vlm"):
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet: ROADMAP.md "
-                "queue A, 'the other model families'"
-            )
-
     # ---------------- parameters ---------------- #
 
     def specs(self) -> Dict:
+        if self.cfg.family == "encdec":
+            return encdec.model_specs(self.cfg)
         return transformer.model_specs(self.cfg)
 
     def init(self, generator: torch.Generator, dtype=None, device: DeviceLike = None) -> Dict:
@@ -51,12 +46,18 @@ class Model:
         ctx: SpmdCtx = SpmdCtx(),
         ops: DispatchOps = KERNEL_OPS,
     ) -> Tuple[torch.Tensor, Dict]:
-        """batch: tokens (B,S), targets (B,S).  Returns (loss, aux) with
-        the new link states in ``aux["dyskew"]`` when ``dyskew`` is given."""
-        logits, aux = transformer.forward(
-            params, batch["tokens"], cfg=self.cfg, ctx=ctx, dyskew=dyskew,
-            prefix_embeds=batch.get("patches"), ops=ops,
-        )
+        """batch: tokens (B,S), targets (B,S), and frames (encdec) or
+        patches (vlm).  Returns (loss, aux) with the new link states in
+        ``aux["dyskew"]`` when ``dyskew`` is given."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            enc_out = encdec.encode(params, batch["frames"], cfg)
+            logits, aux = encdec.forward(params, batch["tokens"], cfg=cfg, enc_out=enc_out)
+        else:
+            logits, aux = transformer.forward(
+                params, batch["tokens"], cfg=cfg, ctx=ctx, dyskew=dyskew,
+                prefix_embeds=batch.get("patches"), ops=ops,
+            )
         loss = transformer.lm_loss(logits, batch["targets"])
         metrics = dict(aux.get("metrics", {}))
         if "moe_aux_loss" in metrics:
@@ -68,6 +69,8 @@ class Model:
 
     def decode_state_init(self, batch: int, max_seq: int, device: DeviceLike = None) -> Dict:
         dt = transformer.model_dtype(self.cfg)
+        if self.cfg.family == "encdec":
+            return encdec.decode_state_init(self.cfg, batch, max_seq, dt, device)
         return transformer.decode_state_init(self.cfg, batch, max_seq, dt, device)
 
     def prefill(
@@ -82,10 +85,17 @@ class Model:
         """Process the prompt, filling caches (in place). Returns
         (logits, new_state); the new link states are dropped, as in
         ``repro`` — call ``transformer.forward`` to carry them."""
-        logits, aux = transformer.forward(
-            params, inputs["tokens"], cfg=self.cfg, ctx=ctx, dyskew=dyskew,
-            decode_state=state, prefix_embeds=inputs.get("patches"),
-        )
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            enc_out = encdec.encode(params, inputs["frames"], cfg)
+            logits, aux = encdec.forward(
+                params, inputs["tokens"], cfg=cfg, enc_out=enc_out, decode_state=state,
+            )
+        else:
+            logits, aux = transformer.forward(
+                params, inputs["tokens"], cfg=cfg, ctx=ctx, dyskew=dyskew,
+                decode_state=state, prefix_embeds=inputs.get("patches"),
+            )
         return logits, aux["decode_state"]
 
     def decode_step(
@@ -98,14 +108,17 @@ class Model:
         dyskew: Optional[Dict] = None,
     ) -> Tuple[torch.Tensor, Dict]:
         """One decode step. Returns (logits (B,1,V), new_state)."""
-        logits, aux = transformer.forward(
-            params, token, cfg=self.cfg, ctx=ctx, dyskew=dyskew,
-            decode_state=state,
-        )
+        if self.cfg.family == "encdec":
+            logits, aux = encdec.forward(params, token, cfg=self.cfg, decode_state=state)
+        else:
+            logits, aux = transformer.forward(
+                params, token, cfg=self.cfg, ctx=ctx, dyskew=dyskew,
+                decode_state=state,
+            )
         return logits, aux["decode_state"]
 
     def dyskew_init(self, ctx: SpmdCtx = SpmdCtx(), device: DeviceLike = None) -> Optional[Dict]:
-        if self.cfg.moe is None:
+        if self.cfg.moe is None or self.cfg.family == "encdec":
             return None
         return transformer.dyskew_states_init(self.cfg, ctx, device)
 

@@ -1,5 +1,6 @@
 """Unified decoder-only transformer covering the dense / MoE / SSM /
-hybrid families: attention or Mamba-2 mixers with MoE or dense ffn layers.
+hybrid families (plus the VLM prefix-embedding variant): attention or
+Mamba-2 mixers with MoE or dense ffn layers.
 
 Layers are grouped into *blocks* of ``period`` layers (period = lcm of the
 attention interleave and the MoE every-other layout) and every parameter
@@ -157,21 +158,24 @@ def decode_state_init(
     cfg: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype,
     device: DeviceLike = None,
 ) -> Dict:
-    """KV caches + SSM states + position counter for decode."""
+    """KV caches + SSM states + position counter for decode.  With
+    ``cfg.kv_cache_dtype == "int8"`` the caches hold int8 values and a
+    float32 scale per (block, batch, position, kv head)."""
     dev = resolve_device(device)
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet: ROADMAP.md queue A, "
-            "'the other model families (int8 KV cache, encdec, VLM prefix)'"
-        )
     nb = num_blocks(cfg)
     K, hd = cfg.num_kv_heads, cfg.head_dim_
+    int8 = cfg.kv_cache_dtype == "int8"
+    kv_dt = torch.int8 if int8 else dtype
     out: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     for j in attn_layer_positions(cfg):
-        out[f"kv_l{j}"] = {
-            "k": torch.zeros((nb, batch, max_seq, K, hd), dtype=dtype, device=dev),
-            "v": torch.zeros((nb, batch, max_seq, K, hd), dtype=dtype, device=dev),
+        entry = {
+            "k": torch.zeros((nb, batch, max_seq, K, hd), dtype=kv_dt, device=dev),
+            "v": torch.zeros((nb, batch, max_seq, K, hd), dtype=kv_dt, device=dev),
         }
+        if int8:
+            entry["k_scale"] = torch.zeros((nb, batch, max_seq, K), dtype=torch.float32, device=dev)
+            entry["v_scale"] = torch.zeros((nb, batch, max_seq, K), dtype=torch.float32, device=dev)
+        out[f"kv_l{j}"] = entry
     for j in mamba_layer_positions(cfg):
         one = mamba_state_init(cfg, batch, dtype, dev)
         out[f"ssm_l{j}"] = tree_map(
@@ -271,7 +275,7 @@ def forward(
     ctx: SpmdCtx = SpmdCtx(),
     dyskew: Optional[Dict] = None,   # stacked MoE link states
     decode_state: Optional[Dict] = None,
-    prefix_embeds: Optional[torch.Tensor] = None,
+    prefix_embeds: Optional[torch.Tensor] = None,   # (B, P, d) VLM patch stub
     ops: DispatchOps = KERNEL_OPS,
 ) -> Tuple[torch.Tensor, Dict]:
     """Returns (logits (B,S,V), aux) where aux carries new dyskew states,
@@ -283,17 +287,21 @@ def forward(
     ``dyskew`` is not mutated; the new link states are fresh tensors.
     ``ops`` are the MoE layers' dispatch steps (``moe.PLAIN_OPS`` for the
     plain versions).
+    ``prefix_embeds`` take the first P positions in place of the token
+    embeddings, cast to the model dtype; a prompt shorter than P raises.
     """
-    if prefix_embeds is not None:
-        raise NotImplementedError(
-            "prefix embeddings are not ported yet: ROADMAP.md queue A, "
-            "'the other model families (int8 KV cache, encdec, VLM prefix)'"
-        )
     B, S = tokens.shape
     dtype = model_dtype(cfg)
     dev = tokens.device
 
     x = basic.embed_apply(params["embed"], tokens, dtype)
+    if prefix_embeds is not None:
+        P = prefix_embeds.shape[1]
+        if S < P:
+            raise ValueError(
+                f"a prompt of {S} tokens is shorter than its {P} prefix embeddings"
+            )
+        x = torch.cat([prefix_embeds.to(dtype), x[:, P:]], dim=1)
 
     if decode_state is not None:
         if S > 1:

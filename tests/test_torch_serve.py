@@ -279,19 +279,14 @@ def test_tree_materialize_follows_the_init_rule():
 
 
 def test_what_is_not_ported_says_so():
-    cfg = _reduced(t_get_config)
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.train.step import StepConfig, make_train_step
+
+    tm = t_build(_reduced(t_get_config))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_transformer.decode_state_init(
-            dataclasses.replace(cfg, kv_cache_dtype="int8"), 1, 8, torch.float32, "cpu"
-        )
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_attention.quantize_kv(torch.zeros(1, 1, 1, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_build(dataclasses.replace(cfg, family="encdec"))
-    with pytest.raises(NotImplementedError, match="encdec"):
-        t_build(dataclasses.replace(cfg, family="encdec", encoder_layers=2, encoder_len=16))
+        make_train_step(tm, OptimizerConfig(), StepConfig(grad_compression=True))
     with pytest.raises(KeyError):
-        t_get_config("whisper-base")
+        t_get_config("no-such-arch")
 
 
 def test_default_device_needs_a_gpu():
