@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with ``nvcc``,
-holds each against its plain PyTorch version on the card, runs the DySkew
-MoE dispatch and one full-width Mamba-2 layer through the kernels and
-through the plain versions side by side, and then serves two models at full
+holds each (the state scan's backward too) against its plain PyTorch
+version on the card, runs the DySkew MoE dispatch and one full-width
+Mamba-2 layer through the kernels and through the plain versions side by
+side, and then serves two models at full
 width and depth (random weights from a seed), each with one prefill of 8
 prompts of 1024 tokens and 32 greedy decode steps through
 ``make_prefill_step`` / ``make_decode_step``: ``granite-moe-1b-a400m``,
@@ -40,7 +41,13 @@ width and depth through ``train/loop.py::train`` (AdamW, remat, 4 steps of
 8 × 1024 tokens fed by the pipeline), after step 1's gradients through the
 kernels have been held against those through the plain versions and
 against a second kernel run; then the same 4 steps of the reduced config on
-the card and on the host, and a checkpoint round trip on the card.
+the card and on the host, and a checkpoint round trip on the card.  Then
+``train_mamba`` trains ``mamba2-1.3b`` the same way through the state scan
+and its hand-written backward: step 1 in float32 against autograd through
+the plain scan (with a control that drops the decay's gradient, which must
+fail the band) and against a second kernel run, 4 bf16 steps through the
+loop, counted, and reduced ``mamba2-1.3b`` and ``jamba-1.5-large-398b``
+(Adafactor), card against host.
 
 Standard output is one JSON object per line:
 
@@ -60,7 +67,9 @@ Standard output is one JSON object per line:
     {"phase": "serving_engine"}  ServingEngine results, card against host
     {"phase": "train", ...}      step 1 kernel against plain, 4 full steps, reduced
                                  steps card against host, checkpoint round trip
-    {"phase": "profile", ...}    with --profile, also one traced train step
+    {"phase": "train_mamba"}     mamba2-1.3b: step 1 kernel against plain scan, 4
+                                 full steps, reduced mamba2 and jamba card against host
+    {"phase": "profile", ...}    with --profile, also one traced train step of each
     {"kernels": [...]}           per kernel: time, bound, launches, error
     <name>, <power limit>        as nvidia-smi prints them
     {"ok": true, "device": {...}}
@@ -96,6 +105,7 @@ FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, outside the tensor cores
 MOE_ARCH = "granite-moe-1b-a400m"
 SSM_ARCH = "mamba2-1.3b"
 KIMI_ARCH = "kimi-k2-1t-a32b"
+HYBRID_ARCH = "jamba-1.5-large-398b"
 PREFILL_BATCH, PREFILL_LEN, DECODE_STEPS = 8, 1024, 32
 EP_SHARDS = 8
 
@@ -104,19 +114,22 @@ REPLACES = {
     "load_histogram": "src/repro/kernels/histogram/kernel.py:38",
     "dispatch_gather": "src/repro/kernels/dispatch/kernel.py:49",
     "ssd_state_scan": "src/repro/kernels/ssd_scan/kernel.py:43",
+    "ssd_state_scan_bwd": "src/repro/models/layers/mamba2.py:132 (no Pallas backward: "
+                          "repro differentiates this lax.scan)",
 }
 SOURCES = {
     "topk_gating": "src/repro_torch/kernels/csrc/topk_gating.cu",
     "load_histogram": "src/repro_torch/kernels/csrc/histogram.cu",
     "dispatch_gather": "src/repro_torch/kernels/csrc/dispatch.cu",
     "ssd_state_scan": "src/repro_torch/kernels/csrc/ssd_state_scan.cu",
+    "ssd_state_scan_bwd": "src/repro_torch/kernels/csrc/ssd_state_scan.cu",
 }
 
 # The device kernels of csrc/, as the profiler names them.
 PORT_KERNEL_NAMES = (
     "topk_gating_group_kernel", "topk_gating_warp_kernel", "histogram_block_kernel",
     "histogram_cluster_kernel", "dispatch_gather_kernel", "dispatch_bytes_kernel",
-    "ssd_scan_vec_kernel", "ssd_scan_scalar_kernel",
+    "ssd_scan_vec_kernel", "ssd_scan_scalar_kernel", "ssd_scan_bwd_kernel", "ssd_scan_bwd_decay_kernel",
 )
 
 
@@ -468,6 +481,72 @@ def ssd_case(torch, name, states, decay, timed):
     return out
 
 
+#: d_decay, kernel against the plain backward: a sum over the P * N plane of
+#: each (c, h), taken in another order (a thread's four products, a warp's
+#: shuffle tree, the block's warps, the blocks in order) than the plain
+#: version's.  rtol 1e-5 and an absolute 1e-5 of the largest |d_decay|.
+BWD_DECAY_RTOL = 1e-5
+
+
+def ssd_bwd_case(torch, name, g, out, decay, states_dtype, timed):
+    """The scan's backward kernel against its plain version on one input:
+    d_states EQUAL (in the states' dtype), d_decay within BWD_DECAY_RTOL,
+    and a second kernel run the same bits."""
+    from repro_torch.kernels.ssd_scan.kernel_bwd import ssd_state_scan_bwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_state_scan_bwd_ref
+
+    ds_k, dd_k = ssd_state_scan_bwd(g, out, decay, states_dtype)
+    ds_k2, dd_k2 = ssd_state_scan_bwd(g, out, decay, states_dtype)
+    torch.cuda.synchronize()
+    ds_r, dd_r = ssd_state_scan_bwd_ref(g, out, decay)
+    ds_r = ds_r.to(states_dtype)
+    check(ds_k.dtype == states_dtype and ds_k.shape == g.shape, f"{name}: d_states type or shape")
+    check(dd_k.dtype == torch.float32 and dd_k.shape == decay.shape, f"{name}: d_decay type or shape")
+    # Bit for bit: the adjoint's multiply and add are rounded one by one, as
+    # the plain version's two tensor operations are, and bfloat16 is rounded
+    # to nearest even, as PyTorch casts.
+    check(torch.equal(ds_k, ds_r), f"{name}: d_states differ from the plain version")
+    scale = float(dd_r.abs().max()) if dd_r.numel() else 0.0
+    check(torch.allclose(dd_k, dd_r, rtol=BWD_DECAY_RTOL, atol=BWD_DECAY_RTOL * max(scale, 1e-30)),
+          f"{name}: d_decay differs from the plain version")
+    check(torch.equal(ds_k, ds_k2) and torch.equal(dd_k, dd_k2), f"{name}: two kernel runs differ")
+    C, H, P, N = g.shape
+    res = {
+        "kernel": "ssd_state_scan_bwd", "case": name, "shape": [C, H, P, N],
+        "dtype": str(states_dtype).replace("torch.", ""),
+        "max_abs_err": float((dd_k - dd_r).abs().max()) if dd_k.numel() else 0.0,
+        "d_decay_max_rel_err": float((dd_k - dd_r).abs().max()) / scale if scale else 0.0,
+        "d_states_equal": True, "runs_equal": True,
+    }
+    if timed:
+        # g[1..C-1] and out[1..C-2] are read with decay[1..C-2]; d_states
+        # (C planes) and d_decay written.  Per element of a live chunk: the
+        # adjoint's multiply and add, and d_decay's multiply and add.
+        plane = H * P * N
+        live = max(C - 2, 0)
+        nbytes = ((C - 1) + live) * plane * 4 + live * H * 4 + C * plane * ds_k.element_size() + C * H * 4
+        b_ms, by = bound(nbytes, 4 * live * plane)
+        res.update(
+            kernel_ms=time_ms(torch, lambda: ssd_state_scan_bwd(g, out, decay, states_dtype)),
+            host_ms=host_ms(torch, lambda: ssd_state_scan_bwd(g, out, decay, states_dtype)),
+            plain_ms=time_ms(torch, lambda: ssd_state_scan_bwd_ref(g, out, decay)),
+            library_ms=None,   # no single PyTorch call computes this backward
+            bytes=nbytes, bound_ms=b_ms, bound_by=by,
+        )
+    del ds_k, dd_k, ds_k2, dd_k2, ds_r, dd_r
+    return res
+
+
+def ssd_bwd_inputs(torch, gen, states, decay):
+    """The backward's inputs for a forward on ``states`` and ``decay``: the
+    prefix the scan kernel makes, and a prefix gradient drawn from ``gen``."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_state_scan
+
+    out = ssd_state_scan(states, decay)
+    g = torch.randn(states.shape, generator=gen, device="cuda")
+    return g, out
+
+
 def served_scan_inputs(torch, gen):
     """The scan's input at the served shape, as the layer builds it: one
     ``ssd_chunked`` of a 8 x 1024 bfloat16 prompt at mamba2-1.3b's widths
@@ -625,7 +704,12 @@ def phase_kernel_checks(torch):
     states, decay = served_scan_inputs(torch, gen)
     cases.append(ssd_case(torch, "prefill_f32", states, decay, timed=True))
     cases.append(ssd_case(torch, "prefill_bf16_states", states.bfloat16(), decay, False))
-    del states, decay
+    # Its backward at the training shape, which is the same (8 x 1024 tokens
+    # of mamba2-1.3b in chunks of 128): timed, and with bfloat16 states.
+    g, out = ssd_bwd_inputs(torch, gen, states, decay)
+    cases.append(ssd_bwd_case(torch, "train_f32", g, out, decay, torch.float32, timed=True))
+    cases.append(ssd_bwd_case(torch, "train_bf16_states", g, out, decay, torch.bfloat16, False))
+    del states, decay, g, out
     torch.cuda.empty_cache()
 
     def unit(*shape):
@@ -645,6 +729,29 @@ def phase_kernel_checks(torch):
     cases.append(ssd_case(torch, "misaligned_base_bf16", shifted, unit(9, 8), False))
     exact = (torch.arange(9 * 6, device="cuda").view(9, 6) % 2).float()   # decays 0 and 1
     cases.append(ssd_case(torch, "decays_0_and_1", randn(9, 6, 16, 16), exact, False))
+    # The backward at awkward shapes: one chunk (nothing reaches an output),
+    # two (no live d_decay), more chunks than a decay tile, a ragged plane
+    # and its bfloat16 gradient, a plane whose last block is part-filled,
+    # one head, gradients off the 16-byte grid, decays 0 and 1.
+    for name, shape, dtype in (("bwd_C1", (1, 64, 64, 128), torch.float32),
+                               ("bwd_C2", (2, 64, 64, 128), torch.float32),
+                               ("bwd_C300_decay_tiles", (300, 3, 8, 16), torch.float32),
+                               ("bwd_P5_N7_scalar", (9, 7, 5, 7), torch.float32),
+                               ("bwd_P5_N7_scalar_bf16", (9, 7, 5, 7), torch.bfloat16),
+                               ("bwd_plane_2304_ragged_block", (5, 3, 64, 36), torch.float32),
+                               ("bwd_H1_bf16", (9, 1, 64, 128), torch.bfloat16)):
+        st, dec = randn(*shape).to(dtype), unit(*shape[:2])
+        g, out = ssd_bwd_inputs(torch, gen, st, dec)
+        cases.append(ssd_bwd_case(torch, name, g, out, dec, dtype, False))
+    st, dec = randn(9, 8, 16, 16), unit(9, 8)
+    g, out = ssd_bwd_inputs(torch, gen, st, dec)
+    shifted = torch.empty(g.numel() + 1, device="cuda")[1:].view(g.shape)   # 4 bytes off the grid
+    shifted.copy_(g)
+    cases.append(ssd_bwd_case(torch, "bwd_misaligned_g", shifted, out, dec, torch.float32, False))
+    st, dec = randn(9, 6, 16, 16), exact
+    g, out = ssd_bwd_inputs(torch, gen, st, dec)
+    cases.append(ssd_bwd_case(torch, "bwd_decays_0_and_1", g, out, dec, torch.float32, False))
+    del st, dec, g, out, shifted
     torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "cases": cases})
     return cases
@@ -763,13 +870,26 @@ def phase_moe(torch):
 # --------------------------------------------------------------------- #
 
 
+def mamba2_decay_init(torch, p, gen) -> None:
+    """Draws, in place, a Mamba layer's (or a stack of them) ``dt_bias`` and
+    ``A_log`` as Mamba-2's own initialisation draws them (dt log-uniform in
+    [0.001, 0.1], A uniform in [1, 16]), so that the chunk decays spread
+    over (0, 1); the model's zero init puts them near 0."""
+    import math
+
+    shape = p["A_log"].shape
+    u = torch.rand(shape, generator=gen, device=p["A_log"].device)
+    dt0 = torch.exp(math.log(1e-3) + u * (math.log(0.1) - math.log(1e-3)))
+    p["dt_bias"].copy_(dt0 + torch.log(-torch.expm1(-dt0)))          # softplus(dt_bias) = dt0
+    p["A_log"].copy_(torch.log(1.0 + 15.0 * torch.rand(shape, generator=gen, device=p["A_log"].device)))
+
+
 def phase_mamba(torch):
     """One Mamba-2 layer of mamba2-1.3b at full width (d_model 2048, 64
     heads of 64, d_state 128) over 8 x 1024 tokens from a carried, non-zero
     decode state, in float32 so that only the scan differs: once with the
     kernel, once with the plain scan."""
     import dataclasses
-    import math
 
     from repro_torch import kernels
     from repro_torch.config.base import get_config
@@ -780,14 +900,7 @@ def phase_mamba(torch):
     cfg = dataclasses.replace(get_config(SSM_ARCH), dtype="float32")
     gen = torch.Generator(device="cuda").manual_seed(2)
     p = tree_materialize(mamba_specs(cfg), gen, dtype_override=torch.float32)
-    # dt_bias and A_log drawn as Mamba-2's own initialisation draws them (dt
-    # log-uniform in [0.001, 0.1], A uniform in [1, 16]), so that the chunk
-    # decays spread over (0, 1); the model's zero init puts them near 0.
-    nh = p["A_log"].shape[0]
-    u = torch.rand(nh, generator=gen, device="cuda")
-    dt0 = torch.exp(math.log(1e-3) + u * (math.log(0.1) - math.log(1e-3)))
-    p["dt_bias"] = dt0 + torch.log(-torch.expm1(-dt0))          # softplus(dt_bias) = dt0
-    p["A_log"] = torch.log(1.0 + 15.0 * torch.rand(nh, generator=gen, device="cuda"))
+    mamba2_decay_init(torch, p, gen)
     B, S = PREFILL_BATCH, PREFILL_LEN
     x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
     state = {k: torch.randn(v.shape, generator=gen, device="cuda", dtype=v.dtype)
@@ -872,7 +985,7 @@ def expected_launches(cfg):
     n_mamba = len(transformer.mamba_layer_positions(cfg)) * nb
     moe = n_moe * (1 + DECODE_STEPS)
     return {"topk_gating": moe, "load_histogram": moe, "dispatch_gather": moe,
-            "ssd_state_scan": n_mamba}
+            "ssd_state_scan": n_mamba, "ssd_state_scan_bwd": 0}
 
 
 def serve_pass(torch, served, forced=None):
@@ -1068,7 +1181,8 @@ REDUCED_BATCH, REDUCED_SEQ, REDUCED_PROMPT = 2, 32, 16
 #: the softmaxes saturate and the random model amplifies last bits.  These
 #: leaves are rescaled to the fan-in of their inputs, the axes after the
 #: stack's (one, two for ``wo``'s heads and head_dim).
-INPUT_AXES = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1, "w_down": 1}
+INPUT_AXES = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1, "w_down": 1,
+              "w_z": 1, "w_x": 1, "w_B": 1, "w_C": 1, "w_dt": 1, "w_out": 1}
 
 
 def at_input_fan_in(params) -> None:
@@ -2179,17 +2293,14 @@ def step_one_checks(torch, model, data_cfg, card):
 
 def phase_train(torch, card="cuda", profile=False):
     import dataclasses
-    import math
     import shutil
     import tempfile
 
-    from repro_torch import kernels
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.config.base import get_config
     from repro_torch.models import transformer
     from repro_torch.models.model_api import build
     from repro_torch.optim.optimizers import OptimizerConfig
-    from repro_torch.train.loop import LoopConfig, train
 
     t_start = time.perf_counter()
     cfg = get_config(MOE_ARCH)
@@ -2204,38 +2315,13 @@ def phase_train(torch, card="cuda", profile=False):
                        for dtype in ("float32", cfg.dtype)]
 
     # ---- 4 steps through the loop: the counted main path ------------- #
-    stamps = []
-
-    def on_metrics(step, m):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = train(cfg, data_cfg, opt_cfg, LoopConfig(steps=TRAIN_STEPS, log_every=1), on_metrics=on_metrics,
-                device=card)
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    hist = out["history"]
     n_moe = len(transformer.moe_layer_positions(cfg)) * transformer.num_blocks(cfg)
     want = {"topk_gating": 2 * n_moe * TRAIN_STEPS, "load_histogram": 2 * n_moe * TRAIN_STEPS,
-            "dispatch_gather": 2 * n_moe * TRAIN_STEPS, "ssd_state_scan": 0}
-    for name, n in counts.items():
-        check(n == want[name], f"train: {name} launched {n} times, expected {want[name]} (forward and recompute)")
-    check(len(hist) == TRAIN_STEPS and all(math.isfinite(h["loss"]) for h in hist), "train: a loss is not finite")
-    steps_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    steady_ms = sum(steps_ms) / len(steps_ms)
-    row.update(
-        wall_s=wall, ms_per_step=steady_ms, ms_steps_2_to_4=steps_ms,
-        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (steady_ms / 1e3), peak_memory_bytes=peak,
-        loss=[h["loss"] for h in hist], grad_norm=[h["grad_norm"] for h in hist],
-        lr=[h["lr"] for h in hist], moe_dropped_frac=[h["moe_dropped_frac"] for h in hist],
-        moe_distribute_frac=[h["moe_distribute_frac"] for h in hist],
-        data_wait_ms=[h["data_wait_s"] * 1e3 for h in hist],
-        launches=counts, launches_per_step={k: v // TRAIN_STEPS for k, v in counts.items()},
-    )
+            "dispatch_gather": 2 * n_moe * TRAIN_STEPS, "ssd_state_scan": 0, "ssd_state_scan_bwd": 0}
+    out, counts, loop_row = counted_loop(torch, cfg, data_cfg, opt_cfg, card, want)
+    hist = out["history"]
+    row.update(loop_row, moe_dropped_frac=[h["moe_dropped_frac"] for h in hist],
+               moe_distribute_frac=[h["moe_distribute_frac"] for h in hist])
     state = out["state"]
     check(int(state["step"]) == TRAIN_STEPS, "train: step counter")
     check(state["dyskew"]["l0"]["link"]["tick"].tolist() == [TRAIN_STEPS] * transformer.num_blocks(cfg),
@@ -2281,27 +2367,245 @@ def phase_train(torch, card="cuda", profile=False):
     torch.cuda.empty_cache()
 
     # ---- the reduced config: the same 4 steps on the card and the host -- #
-    small = dataclasses.replace(cfg.reduced(), dtype="float32")
-    small_data = train_data_config(small.vocab_size, seq=128)
-    runs = {dev: train(small, small_data, opt_cfg, LoopConfig(steps=TRAIN_STEPS, log_every=1), device=dev)
-            for dev in (card, HOST)}
-    h_card, h_host = ([h["moe_distribute_frac"] for h in runs[dev]["history"]] for dev in (card, HOST))
-    s_card, s_host = runs[card]["state"]["dyskew"], runs[HOST]["state"]["dyskew"]
-    check(h_card == h_host, f"train reduced: moe_distribute_frac {h_card} against {h_host}")
-    for key, a, b in tree_pairs(s_card, s_host):
-        if "/link/" in f"/{key}/":
-            check(torch.equal(a.cpu(), b), f"train reduced: dyskew {key}")
-    ema = max(float((a.cpu() - b).abs().max()) for key, a, b in tree_pairs(s_card, s_host) if key.endswith("ema_loads"))
-    row["reduced"] = {
-        "layers": small.num_layers, "d_model": small.d_model, "experts": small.moe.num_experts,
-        "dtype": small.dtype, "batch": TRAIN_BATCH, "seq": 128, "steps": TRAIN_STEPS,
-        "moe_distribute_frac": h_card, "link_states_equal": True, "ema_loads_max_abs_diff": ema,
-        "loss_card": [h["loss"] for h in runs[card]["history"]],
-        "loss_cpu": [h["loss"] for h in runs[HOST]["history"]],
-    }
+    row["reduced"] = reduced_loop_card_host(torch, cfg, card)
     row["seconds"] = time.perf_counter() - t_start
     emit(row)
     return counts
+
+
+# --------------------------------------------------------------------- #
+# Phase 12: training the Mamba-2 families through the scan's backward
+# --------------------------------------------------------------------- #
+
+#: Step 1 of mamba2-1.3b in float32, the kernel scan against the plain one.
+#: The plain path differentiates ``ssd_state_scan_ref`` by autograd, a
+#: backward independent of the hand-written one.  Both forwards are the same
+#: bits (the scan kernel equals the plain scan bit for bit, and the rest is
+#: the same code), so is d_states (the backward kernel rounds as autograd
+#: does), and the gradients differ by d_decay's order of summation, carried
+#: through 48 layers.  A leaf's reading is ``band_ratio`` with rtol 0 and
+#: atol MAMBA_GRAD_TOL of the plain gradient's largest element (granite's
+#: step-1 band, ``TRAIN_GRAD_TOL``): 1 at the band's edge.  The control, a
+#: backward that drops d_decay (the scan's decay detached), must read more
+#: than 1: the decay's gradient is the only path from the scan to A_log,
+#: dt_bias and w_dt.
+MAMBA_GRAD_TOL = TRAIN_GRAD_TOL
+#: The leaves the control must move outside the band.
+DECAY_LEAVES = ("A_log", "dt_bias", "w_dt")
+
+
+def grad_readings(torch, got, want):
+    """``band_ratio`` of every leaf of ``got`` against ``want`` at rtol 0,
+    atol MAMBA_GRAD_TOL of the leaf's largest |want|."""
+    out = {}
+    for key, a, b in tree_pairs(got, want):
+        scale = float(b.float().abs().max())
+        check(scale > 0, f"train_mamba step 1: {key} gradient is zero")
+        out[key] = band_ratio(a, b, 0.0, MAMBA_GRAD_TOL * scale)
+    return out
+
+
+def mamba_step_one(torch, cfg, data_cfg, card):
+    """Step 1 of ``cfg`` in float32 at full width and depth: the gradients
+    through the scan kernels twice (bit-equal), through the plain scan, and
+    through a control that drops the decay's gradient.  The weights are
+    rescaled to the fan-in of their inputs (``at_input_fan_in``) and the
+    decays drawn as Mamba-2 draws them (``mamba2_decay_init``), so that the
+    chunk decays spread over (0, 1) and the scan carries state."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import transformer
+    from repro_torch.models.layers.moe import KERNEL_OPS, PLAIN_OPS
+    from repro_torch.models.model_api import build
+    from repro_torch.train.step import batch_to, make_grad_fn
+
+    model = build(dataclasses.replace(cfg, dtype="float32"))
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = model.init(gen, device=card)
+    at_input_fan_in(params)
+    for j in transformer.mamba_layer_positions(cfg):
+        mamba2_decay_init(torch, params["blocks"][f"l{j}"]["mamba"], gen)
+    batch = batch_to(next(DataPipeline(data_cfg, device=card)), torch.device(card))
+
+    runs = [make_grad_fn(model)(params, batch, None) for _ in range(2)]
+    (loss_k, _, grads_k), (loss_k2, _, grads_k2) = runs
+    del runs
+    check(torch.equal(loss_k, loss_k2), "train_mamba step 1: two kernel runs give other losses")
+    for key, a, b in tree_pairs(grads_k, grads_k2):
+        check(torch.equal(a, b), f"train_mamba step 1: two kernel runs give other {key} gradients")
+    del grads_k2
+    loss_p, _, grads_p = make_grad_fn(model, ops=PLAIN_OPS)(params, batch, None)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train_mamba step 1: loss {float(loss_k)} against plain {float(loss_p)}")
+    for key, a, _ in tree_pairs(grads_k, grads_p):
+        check(bool(torch.isfinite(a).all()), f"train_mamba step 1: {key} gradient not finite")
+    held = grad_readings(torch, grads_k, grads_p)
+    check(max(held.values()) <= 1.0, f"train_mamba step 1: gradients outside the band: {held}")
+    del grads_k
+
+    def no_decay_grad(states, decay):
+        return ssd_ops.state_scan(states, decay.detach())
+    _, _, grads_c = make_grad_fn(model, ops=dataclasses.replace(KERNEL_OPS, scan=no_decay_grad))(
+        params, batch, None)
+    control = grad_readings(torch, grads_c, grads_p)
+    moved = {k: v for k, v in control.items() if k.rsplit("/", 1)[-1] in DECAY_LEAVES}
+    check(min(moved.values()) > 1.0, f"train_mamba step 1: the control stays inside the band: {moved}")
+    decay = torch.exp(-torch.exp(params["blocks"]["l0"]["mamba"]["A_log"])
+                      * torch.nn.functional.softplus(params["blocks"]["l0"]["mamba"]["dt_bias"]) * cfg.mamba.chunk)
+    out = {"dtype": "float32", "weights": "at_input_fan_in, Mamba-2 decay init",
+           "loss_kernel": float(loss_k), "loss_plain": float(loss_p), "loss_rel_diff": loss_rel,
+           "loss_tol": TRAIN_LOSS_RTOL, "grad_tol": MAMBA_GRAD_TOL,
+           "band_ratio_max": max(held.values()),
+           "band_ratio_decay_leaves": {k: v for k, v in held.items() if k.rsplit("/", 1)[-1] in DECAY_LEAVES},
+           "band_ratio_by_leaf": held,
+           "control_drop_d_decay": {"band_ratio_decay_leaves": moved, "band_ratio_max": max(control.values())},
+           "all_grads_bitwise_equal": True,
+           "chunk_decay_at_bias": [float(decay.min()), float(decay.max())]}
+    del params, batch, grads_p, grads_c
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_mamba(torch, card="cuda", profile=False):
+    """mamba2-1.3b at full width and depth: step 1 in float32 through the
+    kernels against the plain scan, then TRAIN_STEPS bf16 steps through the
+    loop (AdamW, remat), counted; then reduced mamba2-1.3b and reduced
+    jamba-1.5-large-398b (Adafactor), card against host.  Returns the
+    loop's launch counts."""
+    from repro_torch.config.base import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.model_api import build
+    from repro_torch.optim.optimizers import OptimizerConfig
+
+    t_start = time.perf_counter()
+    cfg = get_config(SSM_ARCH)
+    model = build(cfg)
+    data_cfg = train_data_config(cfg.vocab_size)
+    opt_cfg = OptimizerConfig(name=cfg.optimizer, warmup_steps=1, total_steps=TRAIN_STEPS)
+    n_mamba = len(transformer.mamba_layer_positions(cfg)) * transformer.num_blocks(cfg)
+    row = {"phase": "train_mamba", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "ssm_heads": cfg.mamba.num_heads(cfg.d_model), "d_state": cfg.mamba.d_state, "chunk": cfg.mamba.chunk,
+           "dtype": cfg.dtype, "remat": cfg.remat, "optimizer": opt_cfg.name, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "params": model.num_params()}
+    t0 = time.perf_counter()
+    row["step_one"] = mamba_step_one(torch, cfg, data_cfg, card)
+    row["step_one"]["seconds"] = time.perf_counter() - t0
+
+    # ---- 4 bf16 steps through the loop: the counted main path -------- #
+    want = {"topk_gating": 0, "load_histogram": 0, "dispatch_gather": 0,
+            "ssd_state_scan": 2 * n_mamba * TRAIN_STEPS, "ssd_state_scan_bwd": n_mamba * TRAIN_STEPS}
+    out, counts, loop_row = counted_loop(torch, cfg, data_cfg, opt_cfg, card, want)
+    row.update(loop_row)
+    state = out["state"]
+    check(int(state["step"]) == TRAIN_STEPS, "train_mamba: step counter")
+    if profile:
+        from repro_torch.data.pipeline import DataPipeline
+        from repro_torch.train.step import make_train_step
+
+        step = make_train_step(model, opt_cfg)
+        batch = next(DataPipeline(data_cfg, device=card))
+        holder = [state]
+
+        def one_step():
+            holder[0], _ = step(holder[0], batch)
+        one_step()
+        profiled(torch, cfg.name, "train_step", 1, one_step)
+        del holder
+    del out, state
+    torch.cuda.empty_cache()
+
+    # ---- reduced mamba2 and jamba: 4 steps on the card and the host -- #
+    row["reduced"] = [reduced_loop_card_host(torch, get_config(arch), card) for arch in (SSM_ARCH, HYBRID_ARCH)]
+    row["seconds"] = time.perf_counter() - t_start
+    emit(row)
+    return counts
+
+
+def counted_loop(torch, cfg, data_cfg, opt_cfg, card, want):
+    """TRAIN_STEPS steps of ``cfg`` through ``train/loop.py::train`` with
+    every launch counter at 0 before and read after, each kernel held to its
+    count in ``want``.  Returns (the loop's output, the counts, the row's
+    rates, memory and history)."""
+    import math
+
+    from repro_torch import kernels
+    from repro_torch.train.loop import LoopConfig, train
+
+    stamps = []
+
+    def on_metrics(step, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train(cfg, data_cfg, opt_cfg, LoopConfig(steps=TRAIN_STEPS, log_every=1), on_metrics=on_metrics,
+                device=card)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    check(set(counts) == set(want), f"train {cfg.name}: kernels {sorted(counts)}")
+    for name, n in counts.items():
+        check(n == want[name], f"train {cfg.name}: {name} launched {n} times, expected {want[name]}")
+    check(len(hist) == TRAIN_STEPS and all(math.isfinite(h["loss"]) for h in hist),
+          f"train {cfg.name}: a loss is not finite")
+    steps_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    steady_ms = sum(steps_ms) / len(steps_ms)
+    return out, counts, {
+        "wall_s": wall, "ms_per_step": steady_ms, "ms_steps_2_to_4": steps_ms,
+        "tokens_per_s": data_cfg.global_batch * data_cfg.seq_len / (steady_ms / 1e3), "peak_memory_bytes": peak,
+        "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
+        "lr": [h["lr"] for h in hist], "data_wait_ms": [h["data_wait_s"] * 1e3 for h in hist],
+        "launches": counts, "launches_per_step": {k: v // TRAIN_STEPS for k, v in counts.items()},
+    }
+
+
+#: Reduced configs, 4 float32 steps on the card against the same on the
+#: host: each step's loss within rtol 1e-5, the band of the CPU tests'
+#: train steps against ``repro`` (two libraries' float32 products and sums
+#: in another order; a dropped or wrong gradient moves step 2's loss of
+#: these models by 1e-4 or more).
+REDUCED_LOSS_RTOL = 1e-5
+
+
+def reduced_loop_card_host(torch, cfg, card):
+    """TRAIN_STEPS float32 steps of ``cfg`` reduced (its own optimizer) on
+    the card and on the host, 8 x 128 tokens a step: the losses within
+    REDUCED_LOSS_RTOL and, with MoE layers, the routing shares and link
+    states equal."""
+    import dataclasses
+
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.train.loop import LoopConfig, train
+
+    small = dataclasses.replace(cfg.reduced(), dtype="float32")
+    small_data = train_data_config(small.vocab_size, seq=128)
+    opt_cfg = OptimizerConfig(name=small.optimizer, warmup_steps=1, total_steps=TRAIN_STEPS)
+    runs = {dev: train(small, small_data, opt_cfg, LoopConfig(steps=TRAIN_STEPS, log_every=1), device=dev)
+            for dev in (card, HOST)}
+    l_card, l_host = ([h["loss"] for h in runs[dev]["history"]] for dev in (card, HOST))
+    rel = [abs(a - b) / abs(b) for a, b in zip(l_card, l_host)]
+    check(max(rel) <= REDUCED_LOSS_RTOL, f"train {small.name} reduced: losses {l_card} against {l_host}")
+    row = {
+        "arch": small.name, "layers": small.num_layers, "d_model": small.d_model, "dtype": small.dtype,
+        "optimizer": opt_cfg.name, "batch": TRAIN_BATCH, "seq": 128, "steps": TRAIN_STEPS,
+        "loss_card": l_card, "loss_cpu": l_host, "loss_max_rel_diff": max(rel), "loss_rtol": REDUCED_LOSS_RTOL,
+    }
+    if small.moe is not None:
+        h_card, h_host = ([h["moe_distribute_frac"] for h in runs[dev]["history"]] for dev in (card, HOST))
+        s_card, s_host = runs[card]["state"]["dyskew"], runs[HOST]["state"]["dyskew"]
+        check(h_card == h_host, f"train {small.name} reduced: moe_distribute_frac {h_card} against {h_host}")
+        for key, a, b in tree_pairs(s_card, s_host):
+            if "/link/" in f"/{key}/":
+                check(torch.equal(a.cpu(), b), f"train {small.name} reduced: dyskew {key}")
+        row.update(experts=small.moe.num_experts, moe_distribute_frac=h_card, link_states_equal=True,
+                   ema_loads_max_abs_diff=max(float((a.cpu() - b).abs().max()) for key, a, b
+                                              in tree_pairs(s_card, s_host) if key.endswith("ema_loads")))
+    return row
 
 
 # --------------------------------------------------------------------- #
@@ -2365,12 +2669,15 @@ def main() -> int:
         phase_data_pipeline(torch)
         phase_serving_engine(torch)
     # Training needs autograd: outside the no_grad block.  Its counts are
-    # of the 4 steps through the loop (forward and recompute).
+    # of the 4 steps through the loop (forward and recompute, and the
+    # scan's backward).
     counts["train"] = phase_train(torch, profile=args.profile)
+    counts["train_mamba"] = phase_train_mamba(torch, profile=args.profile)
 
     rows = []
     prefill_case = {"topk_gating": "prefill_bf16", "load_histogram": "prefill",
-                    "dispatch_gather": "prefill_bf16", "ssd_state_scan": "prefill_f32"}
+                    "dispatch_gather": "prefill_bf16", "ssd_state_scan": "prefill_f32",
+                    "ssd_state_scan_bwd": "train_f32"}
     for kname, case_name in prefill_case.items():
         mine = [c for c in cases if c["kernel"] == kname]
         c = next(c for c in mine if c["case"] == case_name)
@@ -2387,7 +2694,12 @@ def main() -> int:
         })
         if kname == "topk_gating":
             rows[-1].update(general_ms=c["general_ms"], node_ms=c["node_ms"])
-        kimi = next((c for c in mine if c["case"] == case_name.replace("prefill", "kimi_prefill")), None)
+        if kname == "ssd_state_scan_bwd":
+            # max_abs_err is d_decay's; d_states equals the plain version.
+            rows[-1].update(d_states_equal=all(m["d_states_equal"] for m in mine),
+                            d_decay_max_rel_err=max(m["d_decay_max_rel_err"] for m in mine),
+                            d_decay_rtol=BWD_DECAY_RTOL)
+        kimi = next((c for c in mine if c["case"] == "kimi_" + case_name), None)
         if kimi is not None:
             rows[-1]["kimi"] = {key: kimi[key] for key in (
                 "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms", "bytes")}

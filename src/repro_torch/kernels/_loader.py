@@ -57,6 +57,10 @@ _SIGNATURES = {
         _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, _c_ptr,
     ),
+    "dyskew_ssd_state_scan_bwd": (
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _c_ptr,
+    ),
 }
 
 

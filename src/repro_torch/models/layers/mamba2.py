@@ -12,6 +12,13 @@ recurrence: (a) every chunk's own output, state contribution and decay;
 (b) the recurrence over chunks, in the hand-written ``ssd_state_scan``
 kernel (through ``repro_torch.kernels.ssd_scan.ops.state_scan``); (c) each
 chunk's output from the state entering it; (d) the final state.
+
+It has two arms.  Without grad (serving) it writes its intermediates in
+place and through ``out=``.  With grad on and an input that requires grad
+(training) it computes the same products out of place, since autograd
+refuses ``out=`` and in-place changes to what it saved, and the scan runs as
+``StateScan``, whose backward is the hand-written ``ssd_state_scan_bwd``
+kernel on the card.  Both arms round the same operations in the same order.
 """
 
 from __future__ import annotations
@@ -89,8 +96,11 @@ def ssd_chunked(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD. Returns (y (B,S,H,P) in x's type, final_state (B,H,P,N)
     float32).  ``scan`` runs the recurrence over chunks; the default is
-    ``ssd_ops.state_scan`` (the CUDA kernel for CUDA tensors)."""
+    ``ssd_ops.state_scan`` (the CUDA kernel for CUDA tensors, with its
+    backward under grad)."""
     scan = ssd_ops.state_scan if scan is None else scan
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, h0))
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     hpg = H // G
@@ -114,12 +124,18 @@ def ssd_chunked(
     # Intra-chunk (quadratic within chunk).  The exponent is clamped as in
     # ``repro``: entries with l < m are masked out afterwards.
     seg = da_cs.permute(0, 1, 3, 2)                         # (B,nc,H,L)
-    smat = (seg[..., :, None] - seg[..., None, :]).clamp_(max=0.0).exp_()   # (B,nc,H,L,M)
+    diff = seg[..., :, None] - seg[..., None, :]            # (B,nc,H,L,M)
     CB = torch.einsum("bclgn,bcmgn->bcglm", Cc, Bc).to(f32)                # (B,nc,G,L,M)
-    smat.view(Bsz, nc, G, hpg, L, L).mul_(CB[:, :, :, None])
-    del CB
-    smat.mul_(dtc.permute(0, 1, 3, 2)[:, :, :, None, :])
-    smat.tril_()
+    dt_m = dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+    if grad:
+        smat = (diff.clamp(max=0.0).exp().view(Bsz, nc, G, hpg, L, L) * CB[:, :, :, None])
+        smat = (smat.view(Bsz, nc, H, L, L) * dt_m).tril()
+    else:
+        smat = diff.clamp_(max=0.0).exp_()
+        smat.view(Bsz, nc, G, hpg, L, L).mul_(CB[:, :, :, None])
+        smat.mul_(dt_m)
+        smat.tril_()
+    del CB, diff
     xh = x.reshape(Bsz, nc, L, H, P).permute(0, 1, 3, 2, 4).to(f32)        # (B,nc,H,M,P)
     y_intra = torch.matmul(smat, xh)                                       # (B,nc,H,L,P)
     del smat, xh
@@ -132,22 +148,28 @@ def ssd_chunked(
     # exclusive prefix at c + 1 is then the state entering chunk c, h0
     # included, and the kernel needs no initial-state input.
     w_in = torch.exp(da_total[:, :, None, :] - da_cs) * dtc                 # (B,nc,L,H)
-    xw = torch.empty((nc, Bsz, G, hpg, P, L), dtype=f32, device=dev)
-    torch.mul(
-        xc.permute(1, 0, 3, 4, 5, 2),
-        w_in.reshape(Bsz, nc, L, G, hpg).permute(1, 0, 3, 4, 2)[..., None, :],
-        out=xw,
-    )
+    x_l = xc.permute(1, 0, 3, 4, 5, 2)
+    w_l = w_in.reshape(Bsz, nc, L, G, hpg).permute(1, 0, 3, 4, 2)[..., None, :]
     Bt = Bc.permute(1, 0, 3, 2, 4).to(f32).reshape(nc * Bsz * G, L, N)
-    states = torch.empty((nc + 1, Bsz * H, P, N), dtype=f32, device=dev)
-    if h0 is None:
-        states[0].zero_()
+    d_own = torch.exp(da_total).permute(1, 0, 2).reshape(nc, Bsz * H)
+    if grad:
+        xw = (x_l * w_l).reshape(nc * Bsz * G, hpg * P, L)
+        first = (torch.zeros((1, Bsz * H, P, N), dtype=f32, device=dev) if h0 is None
+                 else h0.reshape(1, Bsz * H, P, N).to(f32))
+        states = torch.cat([first, torch.bmm(xw, Bt).view(nc, Bsz * H, P, N)])
+        decay = torch.cat([d_own.new_zeros((1, Bsz * H)), d_own])
     else:
-        states[0].copy_(h0.reshape(Bsz * H, P, N))
-    torch.bmm(xw.view(nc * Bsz * G, hpg * P, L), Bt, out=states[1:].view(nc * Bsz * G, hpg * P, N))
-    del xw, Bt
-    decay = torch.zeros((nc + 1, Bsz * H), dtype=f32, device=dev)
-    decay[1:] = torch.exp(da_total).permute(1, 0, 2).reshape(nc, Bsz * H)
+        xw = torch.empty((nc, Bsz, G, hpg, P, L), dtype=f32, device=dev)
+        torch.mul(x_l, w_l, out=xw)
+        states = torch.empty((nc + 1, Bsz * H, P, N), dtype=f32, device=dev)
+        if h0 is None:
+            states[0].zero_()
+        else:
+            states[0].copy_(h0.reshape(Bsz * H, P, N))
+        torch.bmm(xw.view(nc * Bsz * G, hpg * P, L), Bt, out=states[1:].view(nc * Bsz * G, hpg * P, N))
+        decay = torch.zeros((nc + 1, Bsz * H), dtype=f32, device=dev)
+        decay[1:] = d_own
+    del xw, Bt, d_own
 
     # ---- (b) the recurrence over chunks ---------------------------------- #
     prefix = scan(states, decay)                            # (nc+1, B*H, P, N)
@@ -159,14 +181,14 @@ def ssd_chunked(
     y_state = torch.bmm(Ct, h_in.transpose(1, 2))          # (nc*B*G, L, hpg*P)
     del Ct
     y_state = y_state.view(nc, Bsz, G, L, hpg, P).permute(1, 0, 3, 2, 4, 5)
-    y = torch.empty((Bsz, nc, L, G, hpg, P), dtype=x.dtype, device=dev)
-    torch.addcmul(
-        y_intra.view(Bsz, nc, G, hpg, L, P).permute(0, 1, 4, 2, 3, 5),
-        y_state,
-        torch.exp(da_cs).view(Bsz, nc, L, G, hpg, 1),
-        out=y,
-    )
-    del y_intra, y_state
+    y_terms = (y_intra.view(Bsz, nc, G, hpg, L, P).permute(0, 1, 4, 2, 3, 5), y_state,
+               torch.exp(da_cs).view(Bsz, nc, L, G, hpg, 1))
+    if grad:
+        y = torch.addcmul(*y_terms).to(x.dtype).contiguous()
+    else:
+        y = torch.empty((Bsz, nc, L, G, hpg, P), dtype=x.dtype, device=dev)
+        torch.addcmul(*y_terms, out=y)
+    del y_intra, y_state, y_terms
 
     # ---- (d) the final state: one more step after the last chunk --------- #
     hT = torch.addcmul(states[nc], prefix[nc], decay[nc][:, None, None])

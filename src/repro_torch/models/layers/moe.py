@@ -45,6 +45,8 @@ from repro_torch.kernels.dispatch import ops as dispatch_ops
 from repro_torch.kernels.dispatch.ref import dispatch_gather_ref
 from repro_torch.kernels.histogram import ops as histogram_ops
 from repro_torch.kernels.histogram.ref import load_histogram_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_state_scan_ref
 from repro_torch.kernels.topk_gating import ops as gating_ops
 from repro_torch.kernels.topk_gating.ref import topk_gating_ref
 from repro_torch.models.param import spec
@@ -61,17 +63,20 @@ class SpmdCtx:
 
 @dataclasses.dataclass(frozen=True)
 class DispatchOps:
-    """The three dispatch steps as callables.  The default sends GPU tensors
-    through the CUDA kernels; ``PLAIN_OPS`` names the plain PyTorch versions,
-    for holding the kernel path against them on the same device."""
+    """The three dispatch steps and the Mamba layers' state scan as
+    callables.  The default sends GPU tensors through the CUDA kernels (the
+    scan with its backward kernel under grad); ``PLAIN_OPS`` names the plain
+    PyTorch versions, for holding the kernel path against them on the same
+    device (under grad the plain scan is differentiated by autograd)."""
 
     gating: Callable = gating_ops.gating            # (logits, k) -> (w, idx)
     histogram: Callable = histogram_ops.histogram   # (ids, E) -> counts
     dispatch: Callable = dispatch_ops.dispatch      # (x, src, valid) -> buf
+    scan: Callable = ssd_ops.state_scan             # (states, decay) -> prefix
 
 
 KERNEL_OPS = DispatchOps()
-PLAIN_OPS = DispatchOps(topk_gating_ref, load_histogram_ref, dispatch_gather_ref)
+PLAIN_OPS = DispatchOps(topk_gating_ref, load_histogram_ref, dispatch_gather_ref, ssd_state_scan_ref)
 
 
 def moe_dyskew_config(adaptive: bool) -> DySkewConfig:

@@ -215,7 +215,7 @@ def _apply_layer(
         )
         x = x + attn_out
     else:
-        mamba_out, new_ssm = mamba_apply(lp["mamba"], h, cfg=cfg, state=cache)
+        mamba_out, new_ssm = mamba_apply(lp["mamba"], h, cfg=cfg, state=cache, scan=ops.scan)
         if cache is not None:
             # In place, as the KV caches: the stacked decode state keeps
             # its tensors.
@@ -285,8 +285,8 @@ def forward(
     place and the returned decode state holds the same tensors (with a new
     ``pos``).
     ``dyskew`` is not mutated; the new link states are fresh tensors.
-    ``ops`` are the MoE layers' dispatch steps (``moe.PLAIN_OPS`` for the
-    plain versions).
+    ``ops`` are the MoE layers' dispatch steps and the Mamba layers' state
+    scan (``moe.PLAIN_OPS`` for the plain versions).
     ``prefix_embeds`` take the first P positions in place of the token
     embeddings, cast to the model dtype; a prompt shorter than P raises.
     """

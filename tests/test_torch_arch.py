@@ -77,9 +77,9 @@ CPU = "cpu"
 BATCH, SEQ, DECODE = 2, 32, 3
 HALF = SEQ // 2
 ARCHS = j_all_arch_ids()
-# Mamba-2 training (the state scan's backward) is still to port: ROADMAP.md
-# queue A item 4.  The two families with Mamba layers are left out here.
-GRAD_ARCHS = tuple(a for a in ARCHS if a not in ("mamba2-1.3b", "jamba-1.5-large-398b"))
+# Every family is differentiable, the Mamba layers through the state scan's
+# ``autograd.Function`` (on the CPU its backward is the plain version).
+GRAD_ARCHS = ARCHS
 LOGIT_RTOL = 2e-4
 ATOL_SHARE = {"encdec": 1e-3, "int8": 2e-3}   # of the largest |logit|; 2e-5 elsewhere
 GRAD_TOL = {"encdec": 1e-2}       # of the largest |g|; 1e-3 elsewhere

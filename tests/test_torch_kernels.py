@@ -200,10 +200,12 @@ class TestWrappers:
         t_hist_ops.histogram(torch.zeros(4, dtype=torch.int32), 8)
         t_dispatch_ops.dispatch(torch.zeros(4, 8), torch.zeros(2, dtype=torch.int32),
                                 torch.ones(2, dtype=torch.bool))
-        t_ssd_ops.state_scan(torch.zeros(2, 3, 4, 4), torch.ones(2, 3))
+        states = torch.zeros(2, 3, 4, 4, requires_grad=True)
+        t_ssd_ops.state_scan(states, torch.ones(2, 3)).sum().backward()
+        assert states.grad is not None
         assert tk.launch_counts() == {
             "topk_gating": 0, "load_histogram": 0, "dispatch_gather": 0,
-            "ssd_state_scan": 0,
+            "ssd_state_scan": 0, "ssd_state_scan_bwd": 0,
         }
 
     def test_reset_launch_counts(self):

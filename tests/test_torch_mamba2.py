@@ -5,10 +5,16 @@ runs it) and its jnp oracle; ``ssd_chunked`` and ``mamba_apply`` against the
 reference layer; reduced ``mamba2-1.3b`` and reduced ``jamba-1.5-large-398b``
 served through the port against the reference.
 
-The CUDA kernel itself needs a GPU: ``chip_smoke.py`` builds it and holds it
-against the same plain version on the card.  Here the ``ops`` switch sends
-CPU tensors to the plain version, and the wrapper's argument checks and
-launch counter are what runs of the kernel module.
+The gradients too: ``StateScan`` (the scan's ``autograd.Function``) against
+``jax.vjp`` of the reference's jnp scan and against autograd through the
+plain scan, and ``ssd_chunked``'s and ``mamba_apply``'s gradients in every
+input and parameter against ``jax.vjp`` of the reference layer, which
+differentiates its ``lax.scan`` over chunks.
+
+The CUDA kernels themselves need a GPU: ``chip_smoke.py`` builds them and
+holds them against the same plain versions on the card.  Here the ``ops``
+switch sends CPU tensors to the plain versions, and the wrappers' argument
+checks and launch counters are what runs of the kernel modules.
 
 Tolerances, each with its reason:
 - plain scan: rtol 1e-5 / atol 1e-5, those of ``tests/test_kernels.py`` (the
@@ -18,6 +24,21 @@ Tolerances, each with its reason:
   chunks where the reference runs one fused body per chunk, and it folds the
   input weights into ``x`` rather than into ``B``: the same float32
   products, summed in another order;
+- the scan's gradients against the reference's vjp: ``d_states`` rtol 1e-5
+  / atol 1e-5, as the scan (the adjoint is the same recurrence run
+  backwards), one bfloat16 step (rtol 2^-8) for bfloat16 states, whose
+  gradient is rounded to bfloat16 from float32 values that differ in the
+  last bits; ``d_decay`` rtol 1e-5 and an absolute 1e-5 of its largest
+  element, a sum over the P * N plane in another order.  Against autograd
+  through the plain scan: EQUAL, the multiply and the add rounded one by
+  one on both sides;
+- ``ssd_chunked``'s and ``mamba_apply``'s gradients: max |Δ| <= 5e-5 of
+  the leaf's largest |gradient| (measured: 1.5e-6 for ``ssd_chunked``,
+  7.9e-6 for ``mamba_apply``, whose gradients also pass the gated norm and
+  the projections).  The forward's reasons, carried through the backward's
+  products;
+- the grad arm of ``ssd_chunked`` against its no-grad arm: EQUAL (the same
+  operations, out of place);
 - the served slice, ``mamba2-1.3b`` and ``jamba-1.5-large-398b`` reduced,
   float32: logits rtol 2e-4 / atol 2e-5 (two to eight layers of float32
   products taken in another order, compounding through the residual
@@ -52,17 +73,21 @@ from repro.train.step import make_prefill_step as j_make_prefill_step
 from repro_torch import kernels as tk
 from repro_torch.config.base import get_config as t_get_config
 from repro_torch.kernels.ssd_scan import kernel as t_scan_kernel
+from repro_torch.kernels.ssd_scan import kernel_bwd as t_scan_bwd_kernel
 from repro_torch.kernels.ssd_scan import ops as t_scan_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_state_scan_bwd_ref as t_scan_bwd_ref
 from repro_torch.kernels.ssd_scan.ref import ssd_state_scan_ref as t_scan_ref
 from repro_torch.models import transformer as t_transformer
 from repro_torch.models.convert import params_from_numpy, state_from_numpy
 from repro_torch.models.layers import mamba2 as t_mamba2
+from repro_torch.models.layers import moe as t_moe
 from repro_torch.models.layers.moe import SpmdCtx as TCtx
 from repro_torch.models.model_api import build as t_build
 from repro_torch.models.param import tree_leaves
 from repro_torch.train.step import make_decode_step as t_make_decode_step
 from repro_torch.train.step import make_prefill_step as t_make_prefill_step
 
+LAYER_GRAD_TOL = 5e-5      # of the largest |gradient| of a leaf; see the module docstring
 MAMBA = "mamba2-1.3b"
 JAMBA = "jamba-1.5-large-398b"
 BATCH, DECODE = 2, 3
@@ -166,6 +191,106 @@ class TestScanWrapper:
 
 
 # --------------------------------------------------------------------- #
+# The scan's backward
+# --------------------------------------------------------------------- #
+
+#: (C, H, P, N, states dtype): one chunk (nothing reaches an output), two,
+#: the served chunk count, a ragged plane, bfloat16 states.
+SCAN_GRAD_CASES = [(1, 4, 8, 16, "float32"), (2, 4, 8, 16, "float32"), (9, 8, 16, 32, "float32"),
+                   (5, 3, 5, 7, "float32"), (9, 4, 16, 16, "bfloat16")]
+
+
+def _scan_grad_inputs(C, H, P, N, seed):
+    states, decay = _scan_inputs(C, H, P, N, seed)
+    g = np.random.default_rng(seed + 1).standard_normal((C, H, P, N)).astype(np.float32)
+    return states, decay, g
+
+
+def _state_scan_grads(fn, states, decay, g):
+    s, d = states.clone().requires_grad_(True), decay.clone().requires_grad_(True)
+    out = fn(s, d)
+    if not out.requires_grad:   # C = 1: the plain scan reaches no output from an input
+        return torch.zeros_like(s), torch.zeros_like(d)
+    return torch.autograd.grad(out, (s, d), torch.from_numpy(g))
+
+
+class TestScanBackward:
+    @pytest.mark.parametrize("C,H,P,N,dtype", SCAN_GRAD_CASES)
+    def test_state_scan_grads_match_the_reference_vjp(self, C, H, P, N, dtype):
+        states, decay, g = _scan_grad_inputs(C, H, P, N, C + H + P + N)
+        tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+        js = jnp.asarray(states).astype(jdt)
+        _, vjp = jax.vjp(j_scan_ref, js, jnp.asarray(decay))
+        jds, jdd = vjp(jnp.asarray(g))
+        ds, dd = _state_scan_grads(t_scan_ops.state_scan, _t(states, tdt), _t(decay), g)
+        assert ds.dtype == tdt and dd.dtype == torch.float32
+        assert ds.shape == states.shape and dd.shape == decay.shape
+        # The adjoint is the forward's recurrence run backwards: the scan's
+        # tolerance.  bfloat16 gradients are held at one bfloat16 step.
+        rtol = 1e-5 if dtype == "float32" else 2 ** -8
+        np.testing.assert_allclose(ds.float().numpy(), np.asarray(jds.astype(jnp.float32)),
+                                   rtol=rtol, atol=1e-5)
+        # d_decay sums a plane of P * N products: another order of summation.
+        np.testing.assert_allclose(dd.numpy(), np.asarray(jdd), rtol=1e-5,
+                                   atol=1e-5 * max(float(np.abs(jdd).max()), 1.0))
+        # d_decay[c] is live for 1 <= c <= C-2 only.
+        assert (float(ds.float().abs().max()) > 0) == (C > 1)
+        assert (float(dd.abs().max()) > 0) == (C > 2)
+        # The last chunk reaches no output; d_decay[0] meets out[0] == 0.
+        assert float(ds[-1].abs().max()) == 0 and float(dd[-1].abs().max()) == 0
+        assert float(dd[0].abs().max()) == 0
+
+    @pytest.mark.parametrize("C,H,P,N,dtype", SCAN_GRAD_CASES)
+    def test_backward_equals_plain_autograd(self, C, H, P, N, dtype):
+        """The hand-written backward (its plain version on the CPU) against
+        autograd through the plain scan: the same bits, as the CUDA kernel
+        must give for d_states."""
+        states, decay, g = _scan_grad_inputs(C, H, P, N, 2 * C + H)
+        tdt = getattr(torch, dtype)
+        got = _state_scan_grads(t_scan_ops.state_scan, _t(states, tdt), _t(decay), g)
+        want = _state_scan_grads(t_scan_ref, _t(states, tdt), _t(decay), g)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        out = t_scan_ref(_t(states), _t(decay))
+        ds, dd = t_scan_bwd_ref(torch.from_numpy(g), out, _t(decay))
+        assert ds.dtype == dd.dtype == torch.float32
+        assert torch.equal(ds.to(tdt), got[0])
+
+    def test_only_the_inputs_that_need_it_get_a_gradient(self):
+        states, decay, g = _scan_grad_inputs(4, 2, 4, 4, 9)
+        s = _t(states).requires_grad_(True)
+        out = t_scan_ops.state_scan(s, _t(decay))
+        (ds,) = torch.autograd.grad(out, (s,), torch.from_numpy(g))
+        assert ds.shape == states.shape
+
+    def test_backward_kernel_refuses_cpu_tensors(self):
+        with pytest.raises(ValueError, match="GPU"):
+            t_scan_bwd_kernel.ssd_state_scan_bwd(torch.zeros(2, 3, 4, 4), torch.zeros(2, 3, 4, 4),
+                                                 torch.ones(2, 3))
+
+    @pytest.mark.parametrize("g,out,decay,dtype,error", [
+        (torch.zeros(2, 3, 4), torch.zeros(2, 3, 4), torch.ones(2, 3), torch.float32, ValueError),
+        (torch.zeros(2, 3, 4, 4), torch.zeros(2, 3, 4, 5), torch.ones(2, 3), torch.float32, ValueError),
+        (torch.zeros(2, 3, 4, 4), torch.zeros(2, 3, 4, 4), torch.ones(3, 2), torch.float32, ValueError),
+        (torch.zeros(2, 3, 4, 4, dtype=torch.bfloat16), torch.zeros(2, 3, 4, 4), torch.ones(2, 3),
+         torch.float32, TypeError),
+        (torch.zeros(2, 3, 4, 4), torch.zeros(2, 3, 4, 4), torch.ones(2, 3), torch.float16, TypeError),
+        (torch.zeros(2, 3, 4, 4), torch.zeros(2, 3, 4, 4), torch.ones(2, 3, dtype=torch.int32),
+         torch.float32, TypeError),
+        (torch.zeros(2, 4, 4, 3).transpose(1, 3), torch.zeros(2, 3, 4, 4), torch.ones(2, 3),
+         torch.float32, ValueError),
+    ])
+    def test_backward_kernel_refuses_what_it_does_not_take(self, g, out, decay, dtype, error):
+        with pytest.raises(error):
+            t_scan_bwd_kernel.ssd_state_scan_bwd(g, out, decay, dtype)
+
+    def test_state_scan_checks_its_inputs(self):
+        with pytest.raises(ValueError, match="contiguous"):
+            t_scan_ops.state_scan(torch.zeros(2, 4, 4, 3).transpose(1, 3), torch.ones(2, 3))
+        with pytest.raises(ValueError, match="meta"):
+            t_scan_ops.state_scan(torch.zeros(2, 3, 4, 4), torch.ones(2, 3, device="meta"))
+
+
+# --------------------------------------------------------------------- #
 # The layer
 # --------------------------------------------------------------------- #
 
@@ -209,6 +334,51 @@ def test_ssd_chunked_runs_its_scan_once_over_all_chunks():
     # [h0, s_0, s_1, s_2] over batch * heads: one call, no copy in between.
     assert calls == [((4, 2 * 4, 8, 8), (4, 2 * 4))]
     assert all(torch.equal(a, b) for a, b in zip(want, got))
+
+
+def _rel_err(ref, got) -> float:
+    """max |got - ref| over max |ref|."""
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(np.asarray(got, np.float32) - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+@pytest.mark.parametrize("chunk,groups,with_h0", [
+    (16, 2, True), (16, 2, False), (8, 1, True), (12, 4, True),
+])
+def test_ssd_chunked_gradients_match_the_reference(chunk, groups, with_h0):
+    """Every input's gradient, through both outputs, against ``jax.vjp`` of
+    ``repro``'s ``ssd_chunked``, on the grad arm (the scan as
+    ``StateScan``)."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(chunk + groups + 1, G=groups)
+    rng = np.random.default_rng(chunk * groups)
+    gy = rng.standard_normal(x.shape).astype(np.float32)
+    gh = rng.standard_normal(h0.shape).astype(np.float32)
+    inputs = [x, dt, A, Bm, Cm] + ([h0] if with_h0 else [])
+
+    def jfn(*args):
+        return j_mamba2.ssd_chunked(*args[:5], chunk, h0=args[5] if with_h0 else None)
+    _, vjp = jax.vjp(jfn, *map(jnp.asarray, inputs))
+    jgrads = vjp((jnp.asarray(gy), jnp.asarray(gh)))
+
+    live = [_t(a).requires_grad_(True) for a in inputs]
+    ty, th = t_mamba2.ssd_chunked(*live[:5], chunk, h0=live[5] if with_h0 else None)
+    tgrads = torch.autograd.grad((ty, th), live, (_t(gy), _t(gh)))
+    for name, jg, tg in zip(("x", "dt", "A", "Bm", "Cm", "h0"), jgrads, tgrads):
+        assert tg.shape == jg.shape, name
+        assert _rel_err(jg, tg.numpy()) <= LAYER_GRAD_TOL, (name, _rel_err(jg, tg.numpy()))
+
+
+def test_ssd_chunked_grad_arm_gives_the_forward_of_the_no_grad_arm():
+    """The grad arm computes the same products out of place: its outputs
+    equal the serving arm's bit for bit."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(5)
+    args = [_t(a) for a in (x, dt, A, Bm, Cm)]
+    with torch.no_grad():
+        want = t_mamba2.ssd_chunked(*args, 16, h0=_t(h0))
+    live = [a.clone().requires_grad_(True) for a in args]
+    got = t_mamba2.ssd_chunked(*live, 16, h0=_t(h0))
+    assert all(g.requires_grad for g in got)
+    assert all(torch.equal(a, b.detach()) for a, b in zip(want, got))
 
 
 def _mamba_cfg(get_config):
@@ -256,6 +426,45 @@ def test_mamba_apply_matches_the_reference(mamba_layer, arm):
     # The carried state is not mutated by the layer itself.
     for key, v in state.items():
         np.testing.assert_array_equal(tst_in[key].numpy(), v)
+
+
+@pytest.mark.parametrize("arm", ["stateless", "prefill_from_state"])
+def test_mamba_apply_gradients_match_the_reference(mamba_layer, arm):
+    """Every parameter's gradient (``A_log``, ``dt_bias`` and ``w_dt``, which
+    reach the loss only through the chunk decays, among them), the input's
+    and, from a carried state, the state's, against ``jax.vjp`` of
+    ``repro``'s ``mamba_apply``, with cotangents on every output."""
+    jcfg, tcfg, jp, tp = mamba_layer
+    rng = np.random.default_rng(11)
+    xin = rng.standard_normal((BATCH, SEQ, jcfg.d_model)).astype(np.float32)
+    state = None if arm == "stateless" else _carried_state(jcfg, 12)
+    gy = rng.standard_normal((BATCH, SEQ, jcfg.d_model)).astype(np.float32)
+    keys = sorted(jp)
+    skeys = [] if state is None else sorted(state)
+    gst = {k: rng.standard_normal(state[k].shape).astype(np.float32) for k in skeys}
+
+    def jfn(params, x, st):
+        y, new = j_mamba2.mamba_apply(params, x, cfg=jcfg, state=st)
+        return y, new
+    _, vjp = jax.vjp(jfn, jp, jnp.asarray(xin),
+                     None if state is None else jax.tree.map(jnp.asarray, state))
+    jgp, jgx, jgs = vjp((jnp.asarray(gy), None if state is None else jax.tree.map(jnp.asarray, gst)))
+
+    live_p = {k: tp[k].detach().clone().requires_grad_(True) for k in keys}
+    live_x = _t(xin).requires_grad_(True)
+    live_s = None if state is None else {k: _t(state[k]).requires_grad_(True) for k in skeys}
+    ty, tst = t_mamba2.mamba_apply(live_p, live_x, cfg=tcfg, state=live_s)
+    outs = [ty] + [tst[k] for k in skeys]
+    cots = [_t(gy)] + [_t(gst[k]) for k in skeys]
+    ins = [live_p[k] for k in keys] + [live_x] + [live_s[k] for k in skeys]
+    tg = torch.autograd.grad(outs, ins, cots, allow_unused=True)
+    want = [jgp[k] for k in keys] + [jgx] + [jgs[k] for k in skeys]
+    names = keys + ["xin"] + [f"state/{k}" for k in skeys]
+    assert {"A_log", "dt_bias", "w_dt"} <= set(keys)
+    for name, jg, g in zip(names, want, tg):
+        g = torch.zeros(jg.shape) if g is None else g
+        assert float(np.abs(np.asarray(jg)).max()) > 0, name
+        assert _rel_err(jg, g.numpy()) <= LAYER_GRAD_TOL, (arm, name, _rel_err(jg, g.numpy()))
 
 
 # --------------------------------------------------------------------- #
@@ -355,17 +564,20 @@ def test_prefill_updates_the_ssm_state_in_place(models):
 
 
 def test_every_mamba_layer_scans_through_the_ops_switch(models, monkeypatch):
-    """Prefill calls ``ops.state_scan`` once per Mamba layer, on (chunks + 1,
-    batch * heads, head_dim, d_state); decode calls it never."""
+    """Prefill calls the model's scan, ``KERNEL_OPS.scan`` =
+    ``ops.state_scan``, once per Mamba layer, on (chunks + 1, batch * heads,
+    head_dim, d_state); decode calls it never.  The calls are recorded in
+    the plain version that ``ops.state_scan`` takes for CPU tensors."""
     _, _, tm, _, tparams = models
+    assert t_moe.KERNEL_OPS.scan is t_scan_ops.state_scan
     calls = []
-    plain = t_scan_ops.state_scan
+    plain = t_scan_ops.ssd_state_scan_ref
 
     def recording(states, decay):
         calls.append(tuple(states.shape))
         return plain(states, decay)
 
-    monkeypatch.setattr(t_scan_ops, "state_scan", recording)
+    monkeypatch.setattr(t_scan_ops, "ssd_state_scan_ref", recording)
     cfg = tm.cfg
     state = tm.decode_state_init(BATCH, SEQ + 1, device="cpu")
     _, state = tm.prefill(tparams, {"tokens": torch.from_numpy(_tokens())}, state)

@@ -1,7 +1,15 @@
 """Training through the port against ``repro`` on the CPU:
 ``granite-moe-1b-a400m`` reduced, in float32 (as ``repro.launch.train
 --reduced`` runs it), with the parameters carried across from the
-reference's own init.
+reference's own init; and the two families with Mamba-2 layers, reduced
+``mamba2-1.3b`` (AdamW) and reduced ``jamba-1.5-large-398b`` (Adafactor, as
+its config says), whose scan trains through ``StateScan``.  Their
+zero-initialised ``A_log`` and ``dt_bias`` are given values from a seed
+first, on both sides, so that the parameter tolerance below means the same
+for them as for the other leaves: started at zero, such a leaf is after a
+few steps nothing but AdamW's normalised updates, m / sqrt(v), whose last
+bits follow the gradient's relative error element by element (3 steps at
+``repro``'s zero init: ``A_log`` 2.5e-5 of its largest element).
 
 Tolerances (stated per comparison):
   * ``lm_loss``: rtol 1e-6 (float32 logsumexp in another library).
@@ -48,6 +56,7 @@ from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.kernels.dispatch import ops as dispatch_ops
 from repro_torch.kernels.dispatch.ref import dispatch_gather_ref
 from repro_torch.kernels.ssd_scan import ops as scan_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_state_scan_ref
 from repro_torch.kernels.topk_gating import ops as gating_ops
 from repro_torch.kernels.topk_gating.ref import topk_gating_ref
 from repro_torch.launch import train as t_launch
@@ -64,8 +73,13 @@ BATCH, SEQ = 4, 32
 GRAD_TOL, PARAM_TOL, MOMENT_TOL = 1e-3, 1e-5, 2e-3
 
 
-def _reduced(get_config, **kw):
-    return dataclasses.replace(get_config(ARCH).reduced(), dtype="float32", **kw)
+MAMBA_ARCHS = (("mamba2-1.3b", "adamw"), ("jamba-1.5-large-398b", "adafactor"))
+#: Leaves the reference initialises to zero, given values before training.
+ZERO_INIT = ("A_log", "dt_bias")
+
+
+def _reduced(get_config, arch=ARCH, **kw):
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32", **kw)
 
 
 def _batch(rng, vocab=256):
@@ -120,6 +134,14 @@ def models():
     return jm, tm, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), device=CPU)
 
 
+@pytest.fixture(scope="module", params=MAMBA_ARCHS, ids=[a for a, _ in MAMBA_ARCHS])
+def mamba_models(request):
+    arch, opt_name = request.param
+    jm, tm = j_build(_reduced(j_get_config, arch)), t_build(_reduced(t_get_config, arch))
+    jparams = jm.init(jax.random.PRNGKey(0))
+    return opt_name, (jm, tm, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), device=CPU))
+
+
 # --------------------------------------------------------------------- #
 # The loss
 # --------------------------------------------------------------------- #
@@ -172,11 +194,24 @@ class TestLoss:
 # --------------------------------------------------------------------- #
 
 
-def _run_steps(models, opt_name, steps, microbatches=1, seed=2):
+def _with_values(jstate, names, seed=3):
+    """``jstate`` with numpy noise from ``seed`` added to the parameter
+    leaves called ``names``."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, a):
+        if str(getattr(path[-1], "key", "")) not in names:
+            return a
+        return a + jnp.asarray(0.5 * rng.standard_normal(a.shape), a.dtype)
+
+    return dict(jstate, params=jax.tree_util.tree_map_with_path(leaf, jstate["params"]))
+
+
+def _run_steps(models, opt_name, steps, microbatches=1, seed=2, noisy=()):
     jm, tm, _, _ = models
     jopt = JOpt(name=opt_name, warmup_steps=2, total_steps=20)
     topt = OptimizerConfig(name=opt_name, warmup_steps=2, total_steps=20)
-    jstate = j_train_state_init(jm, jopt, jax.random.PRNGKey(1))
+    jstate = _with_values(j_train_state_init(jm, jopt, jax.random.PRNGKey(1)), noisy)
     tstate = state_from_numpy(jax.tree.map(np.asarray, jstate), device=CPU)
     jstep = jax.jit(j_make_train_step(jm, jopt, JStep(num_microbatches=microbatches)))
     tstep = make_train_step(tm, topt, StepConfig(num_microbatches=microbatches))
@@ -196,6 +231,15 @@ class TestTrainStep:
     @pytest.mark.parametrize("opt_name", ["adamw", "adafactor"])
     def test_steps_match_reference(self, models, opt_name, steps):
         _run_steps(models, opt_name, steps)
+
+    @pytest.mark.parametrize("steps", [1, 3])
+    def test_mamba_families_match_reference(self, mamba_models, steps):
+        """The Mamba-2 layers train: every parameter, optimizer moment and
+        (jamba) link state after one and three steps, and each step's
+        metrics, against ``repro``'s jitted step."""
+        opt_name, models = mamba_models
+        state = _run_steps(models, opt_name, steps, noisy=ZERO_INIT)
+        assert any("/mamba/" in k for k, _ in flatten_with_paths(state["params"]))
 
     def test_microbatches_match_reference(self, models):
         """Two microbatches a step: float32 accumulation, one link tick a
@@ -275,13 +319,27 @@ class TestFunctions:
         w, idx = gating_ops.gating(logits, 2)
         assert w.requires_grad and not idx.requires_grad and idx.dtype == torch.int32
 
-    def test_state_scan_raises_under_grad(self):
-        states = torch.randn(3, 2, 4, 5, requires_grad=True)
-        decay = torch.rand(3, 2)
-        with pytest.raises(NotImplementedError, match="Mamba-2 training"):
-            scan_ops.state_scan(states, decay)
+    def test_state_scan_under_grad_returns_both_gradients(self):
+        """Under grad the scan runs as ``StateScan``: both inputs get a
+        gradient, the same bits as autograd through the plain scan; under
+        ``torch.no_grad()`` it still runs, and records nothing."""
+        rng = np.random.default_rng(8)
+        states = torch.from_numpy(rng.standard_normal((4, 2, 4, 5)).astype(np.float32))
+        decay = torch.from_numpy(rng.random((4, 2)).astype(np.float32))
+        g = torch.from_numpy(rng.standard_normal((4, 2, 4, 5)).astype(np.float32))
+        grads = []
+        for fn in (scan_ops.state_scan, ssd_state_scan_ref):
+            s, d = states.clone().requires_grad_(True), decay.clone().requires_grad_(True)
+            out = fn(s, d)
+            assert out.requires_grad
+            grads.append(torch.autograd.grad(out, (s, d), g))
+        (ds, dd), (ds_ref, dd_ref) = grads
+        assert ds.shape == states.shape and dd.shape == decay.shape
+        assert float(ds.abs().max()) > 0 and float(dd.abs().max()) > 0
+        assert torch.equal(ds, ds_ref) and torch.equal(dd, dd_ref)
         with torch.no_grad():
-            assert scan_ops.state_scan(states, decay).shape == states.shape
+            out = scan_ops.state_scan(states.requires_grad_(True), decay)
+        assert out.shape == states.shape and out.grad_fn is None
         assert scan_ops.state_scan(states.detach(), decay).shape == states.shape
 
 
@@ -343,9 +401,11 @@ class TestLoop:
         assert [k for k, _ in specs] == list(live)
         assert all(tuple(p.shape) == tuple(live[k].shape) for k, p in specs)
 
-    def test_launcher_on_the_cpu(self, capsys):
-        t_launch.main(["--arch", ARCH, "--reduced", "--steps", "2", "--batch", "4", "--seq", "32",
+    @pytest.mark.parametrize("arch", [ARCH, "mamba2-1.3b"])
+    def test_launcher_on_the_cpu(self, capsys, arch):
+        t_launch.main(["--arch", arch, "--reduced", "--steps", "2", "--batch", "4", "--seq", "32",
                        "--log-every", "1", "--device", "cpu"])
         out = capsys.readouterr().out.strip().splitlines()
-        assert out[0].startswith("step     1  loss=") and "moe_drop=" in out[0]
+        assert out[0].startswith("step     1  loss=")
+        assert ("moe_drop=" in out[0]) == (t_get_config(arch).moe is not None)
         assert out[-1].startswith("done: loss")
