@@ -49,6 +49,15 @@ fail the band) and against a second kernel run, 4 bf16 steps through the
 loop, counted, and reduced ``mamba2-1.3b`` and ``jamba-1.5-large-398b``
 (Adafactor), card against host.
 
+Last, ``roofline`` runs the dry-run (``launch/dryrun.py``: every cell of
+the six configs served or trained, counted on ``meta`` tensors) and counts
+six steps at full width with ``roofline/op_cost.py``, once on the card and
+once on ``meta``, where the counts must be equal and each kernel's records
+must equal its launches: granite's and mamba2's prefill of 8 x 1024, one
+decode step of each, and one train step of each at 8 x 1024.  Each step's
+``mfu`` is MODEL_FLOPS (6·N·D to train, 2·N·D to serve) over its measured
+seconds at the bf16 peak.
+
 Standard output is one JSON object per line:
 
     {"phase": "device", ...}     card, power limit, torch and CUDA versions
@@ -70,6 +79,14 @@ Standard output is one JSON object per line:
     {"phase": "train_mamba"}     mamba2-1.3b: step 1 kernel against plain scan, 4
                                  full steps, reduced mamba2 and jamba card against host
     {"phase": "profile", ...}    with --profile, also one traced train step of each
+    {"phase": "roofline_cell"}   the dry-run of each cell of the six configs served or
+                                 trained (launch/dryrun.py, on meta): status, counts,
+                                 roofline terms, peak GB, fits_hbm
+    {"phase": "roofline_step"}   granite and mamba2 prefill, a decode step and a train
+                                 step, each counted by roofline/op_cost.py on the card
+                                 and on meta (equal), its records equal to its
+                                 launches, with mfu, the counted terms and peaks
+    {"phase": "roofline", ...}   how many cells ran and the phase's seconds
     {"kernels": [...]}           per kernel: time, bound, launches, error
     <name>, <power limit>        as nvidia-smi prints them
     {"ok": true, "device": {...}}
@@ -98,9 +115,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
-
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, outside the tensor cores
 
 MOE_ARCH = "granite-moe-1b-a400m"
 SSM_ARCH = "mamba2-1.3b"
@@ -203,8 +217,13 @@ def host_ms(torch, fn, iters: int = 200) -> float:
 
 
 def bound(bytes_moved: int, operations: int):
-    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = operations / FP32_OPS_PER_S * 1e3
+    """The least ms the card could take: bytes over the HBM rate or float32
+    operations over the peak outside the tensor cores (``roofline/hw.py``),
+    whichever is larger."""
+    from repro_torch.roofline import hw
+
+    by_bytes = bytes_moved / hw.HBM_BW * 1e3
+    by_ops = operations / hw.PEAK_FLOPS_FP32 * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
@@ -252,9 +271,11 @@ def gating_case(torch, name, logits, k, timed, general=False):
         "max_abs_err": gating_check(torch, name, logits, k, general),
     }
     if timed:
-        nbytes = T * E * logits.element_size() + T * k * 8
-        # exp, subtract, divide and the sum per element, k compare rounds.
-        b_ms, by = bound(nbytes, T * E * (4 + k))
+        from repro_torch.roofline import kernel_cost
+
+        cost = kernel_cost.topk_gating(logits, k)
+        nbytes = cost.bytes
+        b_ms, by = bound(cost.bytes, cost.flops)
         one = torch.zeros(1, device=logits.device)
         timed_fns = {
             "kernel_ms": lambda: topk_gating(logits, k=k),
@@ -367,9 +388,12 @@ def histogram_case(torch, name, ids, E, timed):
         "max_abs_err": float((out_k - out_r).abs().max()),
     }
     if timed:
+        from repro_torch.roofline import kernel_cost
+
         in_range = ids[(ids >= 0) & (ids < E)]
-        nbytes = ids.numel() * 4 + E * 4
-        b_ms, by = bound(nbytes, ids.numel())
+        cost = kernel_cost.load_histogram(ids, E)
+        nbytes = cost.bytes
+        b_ms, by = bound(cost.bytes, cost.flops)
         out.update(
             kernel_ms=time_ms(torch, lambda: load_histogram(ids, num_dest=E)),
             host_ms=host_ms(torch, lambda: load_histogram(ids, num_dest=E)),
@@ -422,11 +446,18 @@ def dispatch_case(torch, name, x, src, valid, timed, controls=False):
         "max_abs_err": float((out_k.float() - out_r.float()).abs().max()) if src.numel() else 0.0,
     }
     if timed:
+        from repro_torch.roofline import kernel_cost
+
+        # The kernel's share of bound counts what this plan reads: each
+        # distinct source row once, no row for an empty slot.  The op
+        # counter's record counts from shapes alone, every slot filled.
         row = D * x.element_size()
         live = valid != 0
         rows_read = int(torch.unique(src[live]).numel())
         nbytes = rows_read * row + src.numel() * row + src.numel() * 5
         b_ms, by = bound(nbytes, 0)
+        shape_only = kernel_cost.dispatch_gather(x, src)
+        out.update(shape_bytes=shape_only.bytes, shape_bound_ms=bound(shape_only.bytes, shape_only.flops)[0])
         src64 = src.to(torch.int64)
         out.update(
             kernel_ms=time_ms(torch, lambda: dispatch_gather(x, src, valid)),
@@ -466,10 +497,11 @@ def ssd_case(torch, name, states, decay, timed):
         # The prefix is exclusive: states[C-1] and decay[C-1] reach no
         # output, so C-1 planes and their decays are read and C planes
         # written, with a multiply and an add per element read.
-        plane = H * P * N
-        live = C - 1
-        nbytes = live * plane * states.element_size() + live * H * 4 + C * plane * 4
-        b_ms, by = bound(nbytes, 2 * live * plane)
+        from repro_torch.roofline import kernel_cost
+
+        cost = kernel_cost.ssd_state_scan(states)
+        nbytes = cost.bytes
+        b_ms, by = bound(cost.bytes, cost.flops)
         out.update(
             kernel_ms=time_ms(torch, lambda: ssd_state_scan(states, decay)),
             host_ms=host_ms(torch, lambda: ssd_state_scan(states, decay)),
@@ -522,10 +554,11 @@ def ssd_bwd_case(torch, name, g, out, decay, states_dtype, timed):
         # g[1..C-1] and out[1..C-2] are read with decay[1..C-2]; d_states
         # (C planes) and d_decay written.  Per element of a live chunk: the
         # adjoint's multiply and add, and d_decay's multiply and add.
-        plane = H * P * N
-        live = max(C - 2, 0)
-        nbytes = ((C - 1) + live) * plane * 4 + live * H * 4 + C * plane * ds_k.element_size() + C * H * 4
-        b_ms, by = bound(nbytes, 4 * live * plane)
+        from repro_torch.roofline import kernel_cost
+
+        cost = kernel_cost.ssd_state_scan_bwd(g, states_dtype)
+        nbytes = cost.bytes
+        b_ms, by = bound(cost.bytes, cost.flops)
         res.update(
             kernel_ms=time_ms(torch, lambda: ssd_state_scan_bwd(g, out, decay, states_dtype)),
             host_ms=host_ms(torch, lambda: ssd_state_scan_bwd(g, out, decay, states_dtype)),
@@ -1520,7 +1553,7 @@ def phase_families(torch, profile=False):
 
 # (instances, items): the paper's 4-node cluster of 8 interpreters, and
 # 128 such nodes.
-LINK_SIZES = ((32, 4096), (1024, 1 << 20))
+LINK_SIZES = ((32, 4096), (64, 4096), (128, 4096), (1024, 1 << 20))
 LINK_TICKS = 6
 LPT_ITEMS = 4096
 HOST = "cpu"
@@ -1647,7 +1680,7 @@ def order_controls(torch, card):
     from repro_torch.core import ordered_sums as osum
 
     rng = np.random.default_rng(0)
-    n, items = LINK_SIZES[1]
+    n, items = LINK_SIZES[-1]
     index = np.minimum(rng.zipf(1.3, items) - 1, n - 1)
     values = (rng.standard_normal(items) * 10 ** rng.uniform(-3, 3, items)).astype(np.float32)
     in_order = np.zeros(n, np.float32)
@@ -2609,6 +2642,202 @@ def reduced_loop_card_host(torch, cfg, card):
 
 
 # --------------------------------------------------------------------- #
+# Phase 13: the dry-run and the roofline of whole steps
+# --------------------------------------------------------------------- #
+
+#: The configs whose dry-run cells this phase counts: the six the script
+#: serves or trains.  All 40 cells take about four minutes on one CPU core
+#: (PERF.md §6), over the 90 s the phase may give them.
+ROOFLINE_ARCHS = (MOE_ARCH, SSM_ARCH, "whisper-base", "pixtral-12b", "qwen1.5-32b", KIMI_ARCH)
+#: The counted peak live bytes of a step (its ``meta`` run) over the card's
+#: peak for the same step, stated before the first run: the plain versions
+#: that stand for the kernels on ``meta`` keep more temporaries, the
+#: allocator rounds each block up.
+PEAK_BAND = (0.9, 1.2)
+#: Timed calls of each step (the median is its time), decode steps timed.
+ROOFLINE_TIMED, ROOFLINE_DECODES = 3, 8
+KERNEL_NAMES = ("topk_gating", "load_histogram", "dispatch_gather", "ssd_state_scan", "ssd_state_scan_bwd")
+
+
+def as_meta(torch, tree):
+    """Every tensor of ``tree`` as a ``meta`` tensor of its shape, strides
+    and dtype."""
+    if isinstance(tree, dict):
+        return {k: as_meta(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(as_meta(torch, v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_strided(tree.shape, tree.stride(), dtype=tree.dtype, device="meta")
+    return tree
+
+
+def timed_s(torch, fn, reps=ROOFLINE_TIMED):
+    """Median wall seconds of ``reps`` calls, each ended by a synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def count_step(torch, name, fn, args, model_flops, seconds):
+    """``fn(*args)`` once on the card under the op counter (untimed), every
+    launch counter at 0 before and read after, and once on ``meta`` tensors
+    of the same shapes: FLOPs, product FLOPs, bytes and kernel records must
+    be equal, and the records must equal the launches.  Returns the row:
+    the counts, ``mfu`` (MODEL_FLOPS over ``seconds`` at the bf16 peak), the
+    counted roofline terms, and the counted peak beside the card's."""
+    from repro_torch import kernels
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.analysis import analyze
+    from repro_torch.roofline.op_cost import OpCounter
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    with OpCounter() as card:
+        card.track(args)
+        arg_bytes = card.peak_bytes
+        out = fn(*args)
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    card_peak = torch.cuda.max_memory_allocated() - before + arg_bytes
+    del out
+    meta_args = as_meta(torch, args)
+    with OpCounter() as meta:
+        meta.track(meta_args)
+        fn(*meta_args)
+    c, m = card.result(), meta.result()
+    differ = [key for key in ("flops", "dot_flops", "bytes", "kernels") if c[key] != m[key]]
+    if differ:
+        emit({"phase": "roofline_mismatch", "step": name, "keys": differ,
+              "card": {k: c[k] for k in differ}, "meta": {k: m[k] for k in differ},
+              "by_op": {str(op): {"card": card.by_op.get(op), "meta": meta.by_op.get(op)}
+                        for op in sorted(set(card.by_op) | set(meta.by_op), key=str)
+                        if card.by_op.get(op) != meta.by_op.get(op)}})
+    records = {k: m["kernels"].get(k, {}).get("calls", 0) for k in KERNEL_NAMES}
+    terms = analyze(m, hw.CHIPS_SINGLE, model_flops)
+    ratio = m["peak_bytes"] / card_peak
+    return {
+        "phase": "roofline_step", "step": name, "model_flops": model_flops, "flops": m["flops"],
+        "dot_flops": m["dot_flops"], "bytes": m["bytes"], "kernels": m["kernels"],
+        "launches": {k: v for k, v in launches.items() if v}, "card_equals_meta": not differ,
+        "records_equal_launches": records == launches,
+        "seconds": seconds, "mfu": model_flops / (seconds * hw.PEAK_FLOPS_BF16),
+        "t_compute_s": terms.t_compute, "t_memory_s": terms.t_memory,
+        "useful_flops_ratio": terms.useful_flops_ratio,
+        "peak_bytes_counted": m["peak_bytes"], "peak_bytes_card": card_peak, "peak_ratio": ratio,
+        "peak_band": list(PEAK_BAND), "peak_in_band": PEAK_BAND[0] <= ratio <= PEAK_BAND[1],
+    }
+
+
+def roofline_serve(torch, arch):
+    """Prefill 8 x 1024 and one decode step of ``arch`` at full width, each
+    timed and then counted on the card and on ``meta``."""
+    from repro_torch.roofline.analysis import model_flops_estimate
+
+    served = served_model(torch, arch)
+    model, _, params, inputs, prefill, decode = served
+    cfg = model.cfg
+    B, prompt = inputs["tokens"].shape
+    n = cfg.active_param_count()
+    fresh = model.decode_state_init(B, prompt + ROOFLINE_DECODES + 2)
+    prefill(params, fresh, inputs)                      # warm-up
+    prefill_s = timed_s(torch, lambda: prefill(params, fresh, inputs))
+    rows = [count_step(torch, f"{arch} prefill {B}x{prompt}", prefill, (params, fresh, inputs),
+                       model_flops_estimate(n, B * prompt, "prefill"), prefill_s)]
+    logits, state = prefill(params, fresh, inputs)
+    times = []
+    for _ in range(ROOFLINE_DECODES):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = decode(params, state, tok)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    rows.append(count_step(torch, f"{arch} decode step", decode, (params, state, tok),
+                           model_flops_estimate(n, B, "decode"), statistics.median(times)))
+    del served, params, fresh, state, logits
+    torch.cuda.empty_cache()
+    return rows
+
+
+def roofline_train(torch, arch):
+    """One train step of ``arch`` at full width, 8 x 1024 tokens (bf16,
+    AdamW, remat, as the train phases run it), timed over steps 2-4 and then
+    counted on the card and on ``meta``."""
+    from repro_torch.config.base import get_config
+    from repro_torch.models.model_api import build
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.roofline.analysis import model_flops_estimate
+    from repro_torch.train.step import make_train_step, train_state_init
+
+    cfg = get_config(arch)
+    model = build(cfg)
+    opt_cfg = OptimizerConfig(name=cfg.optimizer, warmup_steps=1, total_steps=TRAIN_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    holder = [train_state_init(model, opt_cfg, gen, device="cuda")]
+    batch = {key: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=gen, device="cuda",
+                                dtype=torch.int32) for key in ("tokens", "targets")}
+    step = make_train_step(model, opt_cfg)
+
+    def one():
+        holder[0], _ = step(holder[0], batch)
+    one()                                               # warm-up
+    seconds = timed_s(torch, one)
+    row = count_step(torch, f"{arch} train step {TRAIN_BATCH}x{TRAIN_SEQ}", step, (holder[0], batch),
+                     model_flops_estimate(cfg.active_param_count(), TRAIN_BATCH * TRAIN_SEQ, "train"), seconds)
+    del holder, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_roofline(torch):
+    """The dry-run of every cell of ROOFLINE_ARCHS (one line a cell; a FAIL
+    fails the run), then the six steps counted on the card against ``meta``
+    with their ``mfu``."""
+    from repro_torch.config.base import SHAPES
+    from repro_torch.launch.dryrun import run_cell
+
+    t_start = time.perf_counter()
+    ok = skipped = 0
+    for arch in ROOFLINE_ARCHS:
+        for shape in SHAPES:
+            rec = run_cell(arch, shape, verbose=False)
+            status = rec["status"]
+            check(not status.startswith("FAIL"), f"roofline: dry-run {arch} x {shape}: {status}\n"
+                  + rec.get("traceback", ""))
+            line = {"phase": "roofline_cell", "arch": arch, "shape": shape, "status": status}
+            if status == "OK":
+                ok += 1
+                t = rec["roofline"]
+                line.update(model_flops=rec["model_flops"], flops=rec["cost"]["flops"],
+                            bytes=rec["cost"]["bytes"], t_compute_s=t["t_compute_s"],
+                            t_memory_s=t["t_memory_s"], peak_gb=rec["memory"]["per_device_total_gb"],
+                            fits_hbm=rec["memory"]["fits_hbm"], trace_s=rec["trace_s"])
+            else:
+                skipped += 1
+            emit(line)
+    dryrun_s = time.perf_counter() - t_start
+    rows = roofline_serve(torch, MOE_ARCH) + roofline_serve(torch, SSM_ARCH)
+    rows += [roofline_train(torch, MOE_ARCH), roofline_train(torch, SSM_ARCH)]
+    for row in rows:
+        emit(row)
+    # Checked once every step has been counted and printed.
+    for row in rows:
+        check(row["card_equals_meta"], f"roofline {row['step']}: the card's count differs from meta's")
+        check(row["records_equal_launches"], f"roofline {row['step']}: records {row['kernels']} "
+              f"against launches {row['launches']}")
+    emit({"phase": "roofline", "archs": list(ROOFLINE_ARCHS), "cells_ok": ok, "cells_skipped": skipped,
+          "dryrun_s": dryrun_s, "steps": len(rows), "seconds": time.perf_counter() - t_start})
+
+
+# --------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -2630,11 +2859,14 @@ def main() -> int:
     # there is nothing to run, and the import error is the whole output.
     from repro_torch.kernels import _loader
 
+    from repro_torch.roofline import hw
+
     smi = nvidia_smi_line()
     name, _, limit = smi.partition(",")
     emit({"phase": "device", "name": name.strip(), "power_limit": limit.strip(),
           "kind": torch.cuda.get_device_name(0), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "total_memory": torch.cuda.get_device_properties(0).total_memory, "hw_hbm_bytes": hw.HBM_BYTES})
 
     _loader.lib(verbose=args.ptxas)
     emit({"phase": "build", "seconds": _loader.last_build_seconds,
@@ -2673,6 +2905,8 @@ def main() -> int:
     # scan's backward).
     counts["train"] = phase_train(torch, profile=args.profile)
     counts["train_mamba"] = phase_train_mamba(torch, profile=args.profile)
+    # Its launches are held to its own counter records, not to the paths'.
+    phase_roofline(torch)
 
     rows = []
     prefill_case = {"topk_gating": "prefill_bf16", "load_histogram": "prefill",
@@ -2694,6 +2928,10 @@ def main() -> int:
         })
         if kname == "topk_gating":
             rows[-1].update(general_ms=c["general_ms"], node_ms=c["node_ms"])
+        if kname == "dispatch_gather":
+            # The op counter's shape-only record (every slot filled) beside
+            # the plan-aware bytes of ``bound_ms``.
+            rows[-1].update(shape_bytes=c["shape_bytes"], shape_bound_ms=c["shape_bound_ms"])
         if kname == "ssd_state_scan_bwd":
             # max_abs_err is d_decay's; d_states equals the plain version.
             rows[-1].update(d_states_equal=all(m["d_states_equal"] for m in mine),

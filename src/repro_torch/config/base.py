@@ -2,8 +2,9 @@
 
 Every architecture is a frozen ``ArchConfig`` registered under its public
 id.  Reduced variants (for CPU smoke tests) come from
-``ArchConfig.reduced()``.  The port's own copy of ``repro.config.base``:
-same fields, same defaults, same derived values.
+``ArchConfig.reduced()``.  ``SHAPES`` are the dry-run's input shapes.  The
+port's own copy of ``repro.config.base``: same fields, same defaults, same
+derived values, same shapes.
 """
 
 from __future__ import annotations
@@ -186,6 +187,22 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+#: The input-shape suite of the dry-run (identical across LM-family archs).
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
 #: Registry of architecture ids → config module names.
 ARCH_MODULES = {
     "whisper-base": "whisper_base",
@@ -216,3 +233,11 @@ def get_config(arch_id: str) -> ArchConfig:
 
 def all_arch_ids() -> Tuple[str, ...]:
     return tuple(ARCH_MODULES)
+
+
+def cell_is_runnable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch × shape) dry-run cell applies: a pure full-attention
+    arch is not run at 500k tokens."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "SKIP: pure full-attention arch at 500k (sub-quadratic required)"
+    return True, ""

@@ -32,7 +32,7 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import admission, redistribution, state_machine
-from repro_torch.core.ordered_sums import scatter_add, sum_windows
+from repro_torch.core.ordered_sums import scatter_add, sum_last
 from repro_torch.core.types import DySkewConfig, RoutingPlan, link_state_init
 
 
@@ -148,7 +148,7 @@ class AdaptiveLink:
         valid_costs = torch.where(item_valid, costs_f32, zero)
         loads_before = scatter_add(zeros_n, producer, valid_costs)
         moved = torch.logical_and(dest != producer, item_valid)
-        bytes_moved = sum_windows(
+        bytes_moved = sum_last(
             torch.where(moved, item_sizes.to(torch.float32), zero)
         )
         items_moved = torch.sum(moved.to(torch.int32))

@@ -9,19 +9,24 @@ the order of its sums across devices: ``index_add_`` and
 atomics, ``sum`` over a short axis is a tree on CUDA and a loop on the
 host, and CUDA divides by a Python number through its reciprocal.
 
-``scatter_add`` and ``sum_last`` add in index order, one slot at a time,
-from the slot's starting value, which is also how XLA on the host adds a
-scatter and a short reduction.  ``torch.segment_reduce`` on a 2-D input
-gives one thread (or one host loop) to each segment and column and walks
-the segment in order, on both devices; those two functions bring their
-operands into that shape.  ``sum_windows``, for one long sum, takes the
-tree XLA on the host takes; ``sum_all`` adds pairwise in a fixed tree.
+``scatter_add`` adds in index order, one slot at a time, from the slot's
+starting value, which is also how XLA on the host adds a scatter.
+``sum_last`` takes the order XLA on the host takes for a reduce: in order
+up to 32 elements, a windowed tree above (for one long sum, flatten
+first).  ``torch.segment_reduce`` on a 2-D input gives one thread (or one
+host loop) to each segment and column and walks the segment in order, on
+both devices; those two functions bring their operands into that shape.
+``sum_all`` adds pairwise in a fixed tree.
 None of them waits for the device.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+#: The window of XLA's CPU tree-reduction rewrite.
+XLA_REDUCE_WINDOW = 32
 
 
 def _segment_sums(values: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -50,12 +55,27 @@ def scatter_add(base: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -
     return _segment_sums(vals[order].unsqueeze(1), lengths).squeeze(1)
 
 
+def _row_sums(rows: torch.Tensor) -> torch.Tensor:
+    """(R, n) → (R,): each row added in order from element 0."""
+    lengths = torch.full((1,), rows.shape[-1], dtype=torch.int64, device=rows.device)
+    return _segment_sums(rows.transpose(0, 1).contiguous(), lengths).reshape(-1)
+
+
 def sum_last(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
-    """Sum over the last axis, element 0 first, for every leading index."""
+    """Sum over the last axis for every leading index, in the order XLA on
+    the host adds a reduce.  Up to ``XLA_REDUCE_WINDOW`` elements a row adds
+    in order from element 0.  A wider row is cut into windows of 32 with
+    stride 32, its zero padding split with the odd zero at the end, each
+    window added in order; that repeats until at most 32 partial sums
+    remain, which add in order from 0."""
     size = x.shape[-1]
-    cols = x.reshape(-1, size).transpose(0, 1).contiguous()
-    lengths = torch.full((1,), size, dtype=torch.int64, device=x.device)
-    out = _segment_sums(cols, lengths).reshape(x.shape[:-1])
+    rows = x.reshape(-1, size)
+    w = XLA_REDUCE_WINDOW
+    while rows.shape[-1] > w:
+        pad = -rows.shape[-1] % w
+        rows = torch.nn.functional.pad(rows, (pad // 2, pad - pad // 2))
+        rows = _row_sums(rows.reshape(-1, w)).reshape(rows.shape[0], -1)
+    out = _row_sums(rows).reshape(x.shape[:-1])
     return out.unsqueeze(-1) if keepdim else out
 
 
@@ -73,26 +93,6 @@ def sum_all(x: torch.Tensor) -> torch.Tensor:
             flat = torch.cat([flat, flat.new_zeros(1)])
         flat = flat[0::2] + flat[1::2]
     return flat.reshape(())
-
-
-#: The window of XLA's CPU tree-reduction rewrite.
-XLA_REDUCE_WINDOW = 32
-
-
-def sum_windows(x: torch.Tensor) -> torch.Tensor:
-    """Sum of every element as a 0-dim tensor, in the order XLA on the host
-    adds a long reduce.  XLA rewrites a reduce of more than 32 elements into
-    a reduce-window of 32 with stride 32, whose zero padding is split with
-    the odd zero at the end, and repeats that until at most 32 partial sums
-    remain, which one plain reduce adds.  Each window and the last reduce
-    add in order from 0."""
-    flat = x.reshape(-1)
-    w = XLA_REDUCE_WINDOW
-    while flat.numel() > w:
-        pad = -flat.numel() % w
-        flat = torch.nn.functional.pad(flat, (pad // 2, pad - pad // 2))
-        flat = sum_last(flat.reshape(-1, w))
-    return sum_last(flat.reshape(1, -1)).reshape(())
 
 
 def div(x: torch.Tensor, k: float) -> torch.Tensor:

@@ -6,6 +6,7 @@ import torch
 
 from repro_torch.kernels.dispatch.kernel import dispatch_gather
 from repro_torch.kernels.dispatch.ref import dispatch_gather_ref
+from repro_torch.roofline import kernel_cost, op_cost
 
 
 def _kernel_forward(x: torch.Tensor, src: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -53,6 +54,9 @@ class Dispatch(torch.autograd.Function):
 
 def dispatch(x: torch.Tensor, src: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Routing-plan gather.  CUDA tensors go through the kernel (or raise);
-    CPU tensors through the plain version."""
+    CPU tensors through the plain version.  An active ``op_cost.OpCounter``
+    counts the kernel's record (every slot filled), whichever version
+    runs."""
     forward = _kernel_forward if x.is_cuda else dispatch_gather_ref
-    return Dispatch.apply(x, src, valid, forward)
+    with op_cost.kernel(kernel_cost.dispatch_gather, x, src):
+        return Dispatch.apply(x, src, valid, forward)

@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.kernels.topk_gating.kernel import topk_gating
 from repro_torch.kernels.topk_gating.ref import gate_probs, renormalise, topk_gating_ref
+from repro_torch.roofline import kernel_cost, op_cost
 
 
 def _kernel_forward(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -38,6 +39,8 @@ class Gating(torch.autograd.Function):
 
 def gating(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """CUDA logits go through the kernel (or raise); CPU logits through the
-    plain version."""
+    plain version.  An active ``op_cost.OpCounter`` counts the kernel's
+    record, whichever version runs."""
     forward = _kernel_forward if logits.is_cuda else topk_gating_ref
-    return Gating.apply(logits, k, forward)
+    with op_cost.kernel(kernel_cost.topk_gating, logits, k):
+        return Gating.apply(logits, k, forward)

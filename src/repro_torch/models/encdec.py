@@ -36,6 +36,7 @@ from repro_torch.models.transformer import (
     _stack_specs,
     _take_block,
     _unbind_blocks,
+    decode_position,
     model_dtype,
 )
 
@@ -146,9 +147,7 @@ def forward(
     B, S = tokens.shape
     dtype = model_dtype(cfg)
     dev = tokens.device
-    # One host read of the position counter: the cache writes need it as a
-    # Python slice bound.
-    start = int(decode_state["pos"]) if decode_state is not None else 0
+    start = decode_position(decode_state) if decode_state is not None else 0
     positions = start + torch.arange(S, dtype=torch.int32, device=dev)
     x = basic.embed_apply(params["embed"], tokens, dtype)
     x = x + sinusoidal(positions, cfg.d_model, dtype)

@@ -66,7 +66,10 @@ def logits_apply(p: Dict, x: torch.Tensor, true_vocab: int) -> torch.Tensor:
     if vpad != true_vocab:
         # In place: at full width the logits are the largest tensor of a
         # prefill, and a second copy of them would be the peak of memory.
-        logits[..., true_vocab:] = torch.finfo(logits.dtype).min
+        # ``fill_`` with a number: an assigned number would become a tensor
+        # on the host for a CUDA tensor and on the device for a ``meta``
+        # one, and be written by different ops.
+        logits[..., true_vocab:].fill_(torch.finfo(logits.dtype).min)
     return logits
 
 

@@ -12,7 +12,7 @@ from repro_torch._device import DeviceLike
 from repro_torch.config.base import ArchConfig
 from repro_torch.models import encdec, transformer
 from repro_torch.models.layers.moe import KERNEL_OPS, DispatchOps, SpmdCtx
-from repro_torch.models.param import tree_materialize, tree_num_params
+from repro_torch.models.param import tree_abstract, tree_materialize, tree_num_params
 
 MOE_AUX_COEF = 0.01
 
@@ -31,6 +31,12 @@ class Model:
     def init(self, generator: torch.Generator, dtype=None, device: DeviceLike = None) -> Dict:
         dt = dtype if dtype is not None else transformer.model_dtype(self.cfg)
         return tree_materialize(self.specs(), generator, dtype_override=dt, device=device)
+
+    def abstract_params(self, dtype=None) -> Dict:
+        """The parameters as ``meta`` tensors (for the dry-run): the
+        shapes and dtypes of ``init``, no generator drawn."""
+        dt = dtype if dtype is not None else transformer.model_dtype(self.cfg)
+        return tree_abstract(self.specs(), dtype_override=dt)
 
     def num_params(self) -> int:
         return tree_num_params(self.specs())

@@ -4,7 +4,9 @@ Every model parameter is declared as a ``ParamSpec`` carrying its shape and
 *logical* axis names ("embed", "heads", "mlp", "experts", "vocab", ...).
 The names are kept so that spec trees read the same as in ``repro``; the
 rule table that maps them to mesh axes is not carried over, since one card
-has no mesh to shard over.
+has no mesh to shard over.  ``tree_abstract`` builds a spec tree as
+``meta`` tensors, which the dry-run traces where ``repro`` lowers
+``ShapeDtypeStruct``s: shapes and dtypes, nothing allocated.
 """
 
 from __future__ import annotations
@@ -78,6 +80,16 @@ def tree_materialize(
         scale = p.scale if p.scale is not None else 1.0 / math.sqrt(fan_in)
         draw = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=generator.device)
         return (scale * draw).to(device=dev, dtype=dt)
+
+    return tree_map(make, tree)
+
+
+def tree_abstract(tree: Any, dtype_override: Any = None) -> Any:
+    """``meta`` tensors of every leaf's shape and dtype (or
+    ``dtype_override``): no allocation, no generator."""
+    def make(p: ParamSpec) -> torch.Tensor:
+        dt = dtype_override if dtype_override is not None else p.dtype
+        return torch.empty(p.shape, dtype=dt, device="meta")
 
     return tree_map(make, tree)
 

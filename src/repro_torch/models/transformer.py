@@ -184,6 +184,17 @@ def decode_state_init(
     return out
 
 
+def decode_position(decode_state: Dict) -> int:
+    """The next position as a Python int: one host read of the counter a
+    decode step, since the cache writes need it as a slice bound.  A
+    ``meta`` counter has no value.  The dry-run stands for every position,
+    as the reference's traced ``pos`` does, and a step's work does not
+    depend on it (a step attends over the whole cache, masked), so it takes
+    position 0."""
+    pos = decode_state["pos"]
+    return 0 if pos.is_meta else int(pos)
+
+
 # ------------------------------------------------------------------ #
 # Forward pass
 # ------------------------------------------------------------------ #
@@ -309,9 +320,7 @@ def forward(
             # ingestion).
             start = 0
         else:
-            # One host read of the position counter per decode step: the
-            # cache write below needs it as a Python slice bound.
-            start = int(decode_state["pos"])
+            start = decode_position(decode_state)
         cache_index: Optional[int] = start
         positions = start + torch.arange(S, dtype=torch.int32, device=dev)
     else:

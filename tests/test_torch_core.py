@@ -293,3 +293,100 @@ class TestTypes:
         plan = tty.RoutingPlan(dest=torch.zeros(4, dtype=torch.int32),
                                distribute=torch.zeros(2, dtype=torch.bool))
         assert plan.est_bytes_moved is None and plan.est_time_saved is None
+
+
+WIDE = (33, 64, 128, 1024)
+WIDE_DRAWS = 200
+
+
+def _in_order_mean_of_others(x):
+    """The order ``sum_last`` took before it followed XLA above width 32:
+    one pass from element 0."""
+    acc = np.zeros(x.shape[:-1], np.float32)
+    for i in range(x.shape[-1]):
+        acc = (acc + x[..., i]).astype(np.float32)
+    return ((acc[..., None] - x) / np.float32(x.shape[-1] - 1)).astype(np.float32)
+
+
+class TestWideSiblingSums:
+    """Sibling sums over more than 32 link instances take XLA's host order
+    (windows of 32), bit for bit: eager ``jnp.sum`` and the sums inside a
+    jitted ``tick`` / ``tick_many``.  Log-normal float32 rows (sigma 2,
+    seed 0, 200 draws a width), where one pass in order differs."""
+
+    @pytest.mark.parametrize("n", WIDE)
+    def test_mean_of_others_bit_equal(self, n):
+        x = np.random.default_rng(0).lognormal(0.0, 2.0, (WIDE_DRAWS, n)).astype(np.float32)
+        got = tsk._mean_of_others(torch.from_numpy(x)).numpy()
+        want = np.stack([np.asarray(jsk._mean_of_others(jnp.asarray(row))) for row in x])
+        assert got.tobytes() == want.tobytes(), n
+        # The one-pass order misses in many draws: the test can tell them apart.
+        old = _in_order_mean_of_others(x)
+        assert (old != want).any(axis=-1).sum() > WIDE_DRAWS // 4, n
+
+    @pytest.mark.parametrize("n", WIDE)
+    def test_row_percentage_skew_bit_equal(self, n):
+        """theta = the draw's own ratio of instance 0 puts that comparison
+        on a tie, where one ulp of the sum decides."""
+        x = np.random.default_rng(0).lognormal(0.0, 2.0, (WIDE_DRAWS, n)).astype(np.float32)
+        old_differs = 0
+        for row in x:
+            theta = float(np.asarray(jsk._mean_of_others(jnp.asarray(row)))[0] / row[0])
+            want = np.asarray(jsk.row_percentage_skew({"rows": jnp.asarray(row)}, theta))
+            got = tsk.row_percentage_skew({"rows": torch.from_numpy(row)}, theta).numpy()
+            np.testing.assert_array_equal(got, want)
+            old = row * np.float32(theta) > _in_order_mean_of_others(row)
+            old_differs += bool((old != want).any())
+        assert old_differs > 0, n
+
+    @staticmethod
+    def _float_inputs(rng, shape, step):
+        inp = _tick_inputs(rng, shape, step)
+        scale = rng.lognormal(0.0, 2.0, shape).astype(np.float32)
+        inp["rows_this_tick"] = (inp["rows_this_tick"] * scale).astype(np.float32)
+        inp["sync_time_this_tick"] = (inp["sync_time_this_tick"] * scale).astype(np.float32)
+        return inp
+
+    @staticmethod
+    def _assert_bits(jl, tl, where):
+        for key in INT_LEAVES:
+            np.testing.assert_array_equal(np.asarray(jl[key]), tl[key].numpy(), err_msg=f"{where}: {key}")
+        for key, a in jl["metrics"].items():
+            assert np.asarray(a).tobytes() == tl["metrics"][key].numpy().tobytes(), f"{where}: {key}"
+
+    @pytest.mark.parametrize("model", MODELS)
+    def test_jitted_tick_n64(self, model):
+        n, ticks = 64, 30
+        kw = dict(n_strikes=2, theta=0.7)
+        jc, tc = _jcfg("LATE", model, True, **kw), _tcfg("LATE", model, True, **kw)
+        jl, tl = jty.link_state_init(n, jc), tty.link_state_init(n, tc, device=CPU)
+        jtick = jax.jit(lambda l, kws: jsm.tick(l, jc, **kws))
+        rng = np.random.default_rng(64)
+        for step in range(ticks):
+            inp = self._float_inputs(rng, (n,), step)
+            jl, jd = jtick(jl, {k: jnp.asarray(v) for k, v in inp.items()})
+            tl, td = tsm.tick(tl, tc, **{k: torch.from_numpy(v) for k, v in inp.items()})
+            np.testing.assert_array_equal(np.asarray(jd), td.numpy(), err_msg=f"tick {step}")
+            self._assert_bits(jl, tl, f"tick {step}")
+
+    @pytest.mark.parametrize("model", MODELS)
+    def test_jitted_tick_many_n64(self, model):
+        T, n, ticks = 4, 64, 30
+        kw = dict(n_strikes=2, theta=0.7)
+        jc, tc = _jcfg("EAGER_SNOWPARK", model, True, **kw), _tcfg("EAGER_SNOWPARK", model, True, **kw)
+        one_j = jty.link_state_init(n, jc)
+        jl = jax.tree.map(lambda a: jnp.broadcast_to(a, (T,) + a.shape), one_j)
+        one_t = tty.link_state_init(n, tc, device=CPU)
+        tl = {
+            k: ({m: v.expand(T, *v.shape).clone() for m, v in val.items()}
+                if isinstance(val, dict) else val.expand(T, *val.shape).clone())
+            for k, val in one_t.items()
+        }
+        jmany = jax.jit(lambda l, kws: jsm.tick_many(l, jc, **kws))
+        rng = np.random.default_rng(65)
+        for step in range(ticks):
+            inp = self._float_inputs(rng, (T, n), step)
+            jl, jd = jmany(jl, {k: jnp.asarray(v) for k, v in inp.items()})
+            tl, td = tsm.tick_many(tl, tc, **{k: torch.from_numpy(v) for k, v in inp.items()})
+            np.testing.assert_array_equal(np.asarray(jd), td.numpy(), err_msg=f"tick {step}")
+            self._assert_bits(jl, tl, f"tick {step}")

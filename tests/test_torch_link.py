@@ -54,6 +54,18 @@ def _sequential_last(x):
     return acc
 
 
+def _xla_host_last(x):
+    """Oracle of XLA's host order for a reduce over the last axis: in order
+    up to 32 elements; wider, windows of 32 (the zero padding split, the odd
+    zero at the end) summed in order, repeated until 32 or fewer remain."""
+    x = np.asarray(x, np.float32)
+    while x.shape[-1] > 32:
+        pad = -x.shape[-1] % 32
+        x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(pad // 2, pad - pad // 2)])
+        x = _sequential_last(x.reshape(x.shape[:-1] + (-1, 32)))
+    return _sequential_last(x)
+
+
 # --------------------------------------------------------------------- #
 # Ordered sums
 # --------------------------------------------------------------------- #
@@ -77,12 +89,16 @@ class TestOrderedSums:
 
     @pytest.mark.parametrize("shape", [(64, 8), (4, 33), (3, 5, 32), (16,)])
     def test_sum_last_is_sequential(self, shape):
+        """In order up to width 32; (4, 33) takes XLA's windowed tree."""
         rng = np.random.default_rng(sum(shape))
         x = (rng.standard_normal(shape) * 10 ** rng.uniform(-3, 3, shape)).astype(np.float32)
-        np.testing.assert_array_equal(osum.sum_last(_t(x)).numpy(), _sequential_last(x))
-        np.testing.assert_array_equal(
-            osum.sum_last(_t(x), keepdim=True).numpy(), _sequential_last(x)[..., None]
-        )
+        want = _xla_host_last(x)
+        if shape[-1] <= 32:
+            np.testing.assert_array_equal(want, _sequential_last(x))
+        np.testing.assert_array_equal(osum.sum_last(_t(x)).numpy(), want)
+        np.testing.assert_array_equal(osum.sum_last(_t(x), keepdim=True).numpy(), want[..., None])
+        # XLA on the host, eager.
+        np.testing.assert_array_equal(np.asarray(jnp.sum(jnp.asarray(x), axis=-1)), want)
 
     @pytest.mark.parametrize("size", [1, 2, 1000, 1025, 3001])
     def test_sum_all_is_a_pairwise_tree(self, size):
@@ -97,14 +113,15 @@ class TestOrderedSums:
 
     @pytest.mark.parametrize("size", [1, 31, 32, 33, 63, 64, 65, 1000, 1025, 1500, 32 * 32 + 1, 4096, 40_000])
     def test_sum_windows_is_xla_host_order(self, size):
-        """Bit for bit ``jnp.sum`` on the host, on log-normal float32 with
-        zeros among them (a masked sum's input), where ``sum_all`` is not."""
+        """One long ``sum_last`` is bit for bit ``jnp.sum`` on the host, on
+        log-normal float32 with zeros among them (a masked sum's input),
+        where ``sum_all`` is not."""
         rng = np.random.default_rng(size + 7)
         for _ in range(4):
             x = rng.lognormal(9.0, 1.5, size).astype(np.float32)
             x[rng.random(size) < 0.4] = 0.0
             want = np.asarray(jnp.sum(jnp.asarray(x)))
-            assert osum.sum_windows(_t(x)).numpy().tobytes() == want.tobytes(), size
+            assert osum.sum_last(_t(x)).numpy().tobytes() == want.tobytes(), size
 
     def test_div_rounds_once(self):
         x = np.arange(0, 4000, dtype=np.float32) * np.float32(1.37)
