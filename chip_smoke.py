@@ -49,6 +49,19 @@ fail the band) and against a second kernel run, 4 bf16 steps through the
 loop, counted, and reduced ``mamba2-1.3b`` and ``jamba-1.5-large-398b``
 (Adafactor), card against host.
 
+Then ``ranks`` checks the token groups and the data axis on the one card:
+granite's prefill (8 × 1024) and one train step at 8 token groups on a
+skewed router, each MoE kernel once a layer as at one group and the kernel
+path against the plain versions, G 1 and G 8 apart; two full granite steps
+through ``launch/train.py``'s path on a real NCCL group of one rank, the
+same bits as no group; four ranks sharing the card over gloo (gloo stages
+each all_reduce through the host: not NCCL's times), granite at full width
+with 6 of its 24 layers in float32, plain and compressed reduction, held to
+the one-process run at num_groups 4, link states the same bits on every
+rank (over NCCL too, a card a rank, where the machine has four cards); and
+the collectives each step issued, as the op counter records them, with the
+data-parallel step's ``t_collective``.
+
 Last, ``roofline`` runs the dry-run (``launch/dryrun.py``: every cell of
 the six configs served or trained, counted on ``meta`` tensors) and counts
 six steps at full width with ``roofline/op_cost.py``, once on the card and
@@ -79,6 +92,10 @@ Standard output is one JSON object per line:
     {"phase": "train_mamba"}     mamba2-1.3b: step 1 kernel against plain scan, 4
                                  full steps, reduced mamba2 and jamba card against host
     {"phase": "profile", ...}    with --profile, also one traced train step of each
+    {"phase": "roofline_step"}   the data-parallel step of ``ranks`` (c): its collectives
+                                 counted and priced (t_collective)
+    {"phase": "ranks", ...}      token groups on the card, one NCCL rank against no group,
+                                 four gloo ranks against one process, launches, seconds
     {"phase": "roofline_cell"}   the dry-run of each cell of the six configs served or
                                  trained (launch/dryrun.py, on meta): status, counts,
                                  roofline terms, peak GB, fits_hbm
@@ -106,6 +123,7 @@ larger.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -2237,6 +2255,8 @@ class PickLog:
 
     def __init__(self):
         self.calls, self.replayed, self.flips = [], 0, 0
+        #: The largest |kernel weight - plain weight| over the replays.
+        self.w_gap = 0.0
 
     def record(self, logits, k):
         from repro_torch.models.layers.moe import KERNEL_OPS
@@ -2252,6 +2272,7 @@ class PickLog:
         self.replayed += 1
         self.flips += int((topk_gating_ref(logits.detach(), k)[1] != idx).any(dim=-1).sum())
         w = renormalise(gate_probs(logits), idx)
+        self.w_gap = max(self.w_gap, float((w.detach() - w_kernel).abs().max()))
         # The kernel's bits forward (w - w.detach() is exactly 0), the plain
         # graph's gradient backward.
         return w_kernel + (w - w.detach()), idx
@@ -2265,24 +2286,29 @@ def tree_pairs(a, b):
     return [(k, x, y) for (k, x), (_, y) in zip(fa, fb)]
 
 
-def step_one_checks(torch, model, data_cfg, card):
+def step_one_checks(torch, model, data_cfg, card, ctx=None, prepare=None):
     """Step 1's loss and gradients from one set of params and one batch:
     through the kernels twice, through the plain versions on the kernel
-    path's forward values, and through the plain versions on their own."""
+    path's forward values, and through the plain versions on their own.
+    ``ctx`` sets the token groups (default one); ``prepare`` is applied to
+    the drawn params first."""
     import dataclasses
 
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.models import transformer
-    from repro_torch.models.layers.moe import KERNEL_OPS, PLAIN_OPS
+    from repro_torch.models.layers.moe import KERNEL_OPS, PLAIN_OPS, SpmdCtx
     from repro_torch.train.step import batch_to, make_grad_fn
 
+    ctx = SpmdCtx() if ctx is None else ctx
     params = model.init(torch.Generator().manual_seed(0), device=card)
+    if prepare is not None:
+        prepare(params)
     batch = batch_to(next(DataPipeline(data_cfg, device=card)), torch.device(card))
-    dyskew = model.dyskew_init(device=card)
+    dyskew = model.dyskew_init(ctx, device=card)
     picks = PickLog()
     runs = []
     for ops in (dataclasses.replace(KERNEL_OPS, gating=picks.record), KERNEL_OPS):
-        runs.append(make_grad_fn(model, ops=ops)(params, batch, dyskew))
+        runs.append(make_grad_fn(model, ctx, ops=ops)(params, batch, dyskew))
     (loss_k, aux_k, grads_k), (_, _, grads_k2) = runs
     del runs
     n_moe = len(transformer.moe_layer_positions(model.cfg)) * transformer.num_blocks(model.cfg)
@@ -2292,7 +2318,7 @@ def step_one_checks(torch, model, data_cfg, card):
         check(torch.equal(a, b), f"train step 1: two kernel runs give other {key} gradients")
     del grads_k2
 
-    loss_p, aux_p, grads_p = make_grad_fn(model, ops=dataclasses.replace(PLAIN_OPS, gating=picks.replay))(
+    loss_p, aux_p, grads_p = make_grad_fn(model, ctx, ops=dataclasses.replace(PLAIN_OPS, gating=picks.replay))(
         params, batch, dyskew)
     check(picks.replayed == len(picks.calls) == 2 * n_moe, "train step 1: the plain path's gating calls")
     grad_tol = TRAIN_GRAD_TOL if model.cfg.dtype == "float32" else TRAIN_GRAD_TOL_BF16
@@ -2308,7 +2334,7 @@ def step_one_checks(torch, model, data_cfg, card):
     for key in ("moe_dropped_frac", "moe_distribute_frac"):
         check(float(aux_k["metrics"][key]) == float(aux_p["metrics"][key]), f"train step 1: {key}")
     del grads_p, grads_k
-    loss_own, _, _ = make_grad_fn(model, ops=PLAIN_OPS)(params, batch, dyskew)
+    loss_own, _, _ = make_grad_fn(model, ctx, ops=PLAIN_OPS)(params, batch, dyskew)
     own_rel = abs(float(loss_k) - float(loss_own)) / abs(float(loss_own))
     check(own_rel <= TRAIN_OWN_LOSS_RTOL, f"train step 1 {model.cfg.dtype}: loss {float(loss_k)} against "
           f"the plain path's own {float(loss_own)}")
@@ -2642,7 +2668,533 @@ def reduced_loop_card_host(torch, cfg, card):
 
 
 # --------------------------------------------------------------------- #
-# Phase 13: the dry-run and the roofline of whole steps
+# Phase 13: token groups and data-parallel ranks
+# --------------------------------------------------------------------- #
+
+#: Token groups of the one-card checks (a): 8 × 1024 tokens, a group a
+#: prompt.
+RANKS_GROUPS = 8
+#: Ranks sharing the one card over gloo (c), each with 2 × 1024 tokens of
+#: every step's 8 × 1024, and the steps of each run.
+RANKS_WORLD, RANKS_ROWS, RANKS_STEPS = 4, 2, 2
+#: Depth of (c): granite at full width with 6 of its 24 layers, about 0.43 B
+#: parameters in float32, so about 7 GB of parameters, AdamW moments and
+#: gradients and 11 GB with activations a rank, 45 GB for four; all 24
+#: layers would be about 88 GB.
+RANKS_LAYERS = 6
+#: Zipf exponent of the router skew (as the moe phase skews its layer).
+RANKS_SKEW_ALPHA = 1.5
+#: Seconds each wait on a rank of (c) may take: a process start, the kernel
+#: build, two models' steps through gloo.
+RANKS_TIMEOUT_S = 420
+#: (c) against the one-process run at num_groups 4, in float32 on the card,
+#: both with the block matrices rescaled to the fan-in of their inputs
+#: (``at_input_fan_in``: at ``repro``'s init the backward of six full-width
+#: layers grows the blocks' gradients three orders of magnitude above the
+#: head's, and the two runs' gradient norms part by more than 10 % on
+#: rounding alone, with the plain path and without remat too).  The
+#: ranks' forwards multiply 2 × 1024 rows where the one process multiplies
+#: 8 × 1024, so cuBLAS rounds the router's logits otherwise and a near-tied
+#: pick may flip, moving one token's output; each rank's gradient is its
+#: share, summed over the ranks in float32.  Losses and ``grad_norm`` within
+#: rtol 1e-3 (summing nothing, or to the wrong scale, moves ``grad_norm`` by
+#: a factor of 2 to 4); the link states' decisions equal; a parameter after
+#: the AdamW step within 1e-5 of its leaf's largest |p|, except where
+#: AdamW's normalised step m / sqrt(v) follows a gradient at rounding or
+#: moved by a flipped pick (then by at most one step of each sign, 2 · lr):
+#: such elements at most 1 % of a leaf.  Against each other the ranks are
+#: held EQUAL (their all_reduce gives every rank the same bits), and one
+#: NCCL rank to no group EQUAL in (b).
+RANKS_LOSS_RTOL = 1e-3
+RANKS_PARAM_TOL = 1e-5
+RANKS_NOISE_SHARE = 0.01
+
+
+def ranks_config(layers=None):
+    import dataclasses
+
+    from repro_torch.config.base import get_config
+
+    cfg = get_config(MOE_ARCH)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    return cfg
+
+
+def skew_router(torch, params, alpha=RANKS_SKEW_ALPHA):
+    """Every MoE layer's router biased by a Zipf(``alpha``) profile over the
+    experts, as the moe phase biases its one layer, in place."""
+    import numpy as np
+
+    router = params["blocks"]["l0"]["moe"]["router"]           # (blocks, d, E)
+    E = router.shape[-1]
+    probs = 1.0 / np.arange(1, E + 1) ** alpha
+    bias = np.log(probs / probs.sum())
+    router.add_(torch.tensor((bias - bias.mean()) * 0.5, dtype=router.dtype, device=router.device))
+
+
+def counted(torch, fn):
+    """``fn()`` with every launch counter at 0 before; (its result, the
+    counts after)."""
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def moe_counts_are(counts, n, where):
+    for name in ("topk_gating", "load_histogram", "dispatch_gather"):
+        check(counts[name] == n, f"{where}: {name} launched {counts[name]} times, expected {n}")
+
+
+def step_collectives(cfg, groups, params):
+    """The bytes of each all_reduce one plain train step issues, in order:
+    a layer's counts and mean probabilities in the forward, the loss's sum
+    and count, the layer's again in the recompute, one float32 sum a
+    parameter leaf."""
+    from repro_torch.checkpoint.manager import flatten_with_paths
+
+    E = cfg.moe.num_experts
+    moe = [4 * (groups * E + E)] * n_moe_layers(cfg)
+    return moe + [8] + (moe if cfg.remat else []) + [4 * p.numel() for _, p in flatten_with_paths(params)]
+
+
+def ranks_batches(torch, cfg):
+    """RANKS_STEPS global batches of RANKS_WORLD · RANKS_ROWS × TRAIN_SEQ
+    tokens on the host, from a seed."""
+    gen = torch.Generator().manual_seed(1)
+    shape = (RANKS_WORLD * RANKS_ROWS, TRAIN_SEQ)
+    return [{key: torch.randint(0, cfg.vocab_size, shape, generator=gen, dtype=torch.int32)
+             for key in ("tokens", "targets")} for _ in range(RANKS_STEPS)]
+
+
+def ranks_rank(rank, world, init_method, reference, backend):
+    """Rank ``rank`` of (c): the granite cut to RANKS_LAYERS, over gloo on
+    the one card or over NCCL on card ``rank``, its rows of each step:
+    RANKS_STEPS plain steps (the first under the op counter), then
+    RANKS_STEPS with compressed reduction from the same start.  Rank 0 also
+    holds its parameters to the one-process run's, read from
+    ``reference``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.launch.mesh import init_ranks
+    from repro_torch.models.layers.moe import SpmdCtx
+    from repro_torch.models.model_api import build
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.roofline.analysis import analyze, model_flops_estimate
+    from repro_torch.roofline.op_cost import OpCounter
+    from repro_torch.train.step import StepConfig, make_train_step, train_state_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # The machine's cores shared among the ranks (gloo's host staging and
+    # the launches).
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    card = torch.device("cuda", rank if backend == "nccl" else 0)
+    mesh = init_ranks(rank, world, device=card, init_method=init_method, backend=backend)
+    try:
+        cfg = ranks_config(RANKS_LAYERS)
+        model = build(cfg)
+        opt_cfg = OptimizerConfig(name=cfg.optimizer, warmup_steps=1, total_steps=TRAIN_STEPS)
+        ctx = SpmdCtx(num_groups=world, group=mesh.group)
+        rows = slice(rank * RANKS_ROWS, (rank + 1) * RANKS_ROWS)
+        batches = [{k: v[rows] for k, v in b.items()} for b in ranks_batches(torch, cfg)]
+        out = {}
+        kernels.reset_launch_counts()
+        for name, compress in (("plain", False), ("compressed", True)):
+            state = train_state_init(model, opt_cfg, torch.Generator(device="cuda").manual_seed(0), ctx, card)
+            at_input_fan_in(state["params"])
+            step = make_train_step(model, opt_cfg, StepConfig(grad_compression=compress), ctx)
+            run = {"loss": [], "grad_norm": [], "ms": []}
+            for i, batch in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == 0 and not compress:
+                    with OpCounter() as counter:
+                        state, m = step(state, batch)
+                else:
+                    state, m = step(state, batch)
+                torch.cuda.synchronize()
+                run["ms"].append((time.perf_counter() - t0) * 1e3)
+                run["loss"].append(float(m["loss"]))
+                run["grad_norm"].append(float(m["grad_norm"]))
+            run["dyskew"] = {k: v.cpu().numpy() for k, v in flatten_with_paths(state["dyskew"])}
+            run["param_sums"] = {k: float(p.double().sum()) for k, p in flatten_with_paths(state["params"])}
+            if compress:
+                run["residual_abs_max"] = max(float(r.abs().max()) for _, r in flatten_with_paths(state["grad_residual"]))
+            elif rank == 0:
+                run["against_one_process"] = ranks_param_gaps(torch, state["params"], reference, m["lr"])
+            out[name] = run
+            del state, step
+            torch.cuda.empty_cache()
+        res = counter.result()
+        issued = step_collectives(cfg, world, model.abstract_params())
+        tokens = RANKS_WORLD * RANKS_ROWS * TRAIN_SEQ
+        terms = analyze(dict(res, flops=res["flops"] * world, bytes=res["bytes"] * world), world,
+                        model_flops_estimate(cfg.active_param_count(), tokens, "train"))
+        out["collectives"] = {"records": len(res["collectives"]), "bytes": [c["bytes"] for c in res["collectives"]],
+                              "issued": issued, "kinds": sorted({(c["kind"], c["group"]) for c in res["collectives"]}),
+                              "t_collective_s": terms.t_collective, "t_compute_s": terms.t_compute,
+                              "t_memory_s": terms.t_memory, "collective_bytes_global": terms.collective_bytes_global,
+                              "by_kind": terms.by_kind}
+        out["launches"] = kernels.launch_counts()
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(card)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def ranks_param_gaps(torch, params, reference, lr):
+    """Each leaf against the one-process run's: the largest |Δ| over the
+    leaf's largest |p|, and the share of elements off by more than
+    RANKS_PARAM_TOL of it (each within 2 · lr, one AdamW step of each
+    sign)."""
+    from repro_torch.checkpoint.manager import flatten_with_paths
+
+    want = torch.load(reference, map_location="cpu")
+    gaps = {}
+    # On the host, leaf by leaf: four ranks already fill the card.
+    for key, p in flatten_with_paths(params):
+        ref = want[key]
+        diff = (p.cpu() - ref).abs()
+        scale = float(ref.abs().max())
+        gaps[key] = {"max_rel": float(diff.max()) / scale, "max_over_lr": float(diff.max()) / float(lr),
+                     "share_off": float((diff > RANKS_PARAM_TOL * scale).float().mean())}
+    return gaps
+
+
+def ranks_groups_on_the_card(torch, card):
+    """(a): the full granite prefill (8 × 1024) and one train step at
+    RANKS_GROUPS token groups on a skewed router, each MoE kernel once a
+    layer as at one group, the kernel path against PLAIN_OPS, and G 1
+    against G 8 apart.  Returns (row, the main path's counts)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.models import transformer
+    from repro_torch.models.layers.moe import SpmdCtx
+    from repro_torch.models.model_api import build
+    from repro_torch.train.step import batch_to, make_decode_step, make_grad_fn, make_prefill_step
+
+    served = served_model(torch, MOE_ARCH)
+    model, ctx1, params, inputs, prefill1, _ = served
+    cfg = model.cfg
+    skew_router(torch, params)
+    ctx8 = SpmdCtx(num_groups=RANKS_GROUPS, num_ep_shards=EP_SHARDS)
+    served8 = (model, ctx8, params, inputs, make_prefill_step(model, ctx8), make_decode_step(model, ctx8))
+    n_moe = n_moe_layers(cfg)
+    B, prompt = inputs["tokens"].shape
+    row = {"groups": RANKS_GROUPS, "tokens": B * prompt, "moe_layers": n_moe, "skew_alpha": RANKS_SKEW_ALPHA}
+    main = {}
+    for name, ctx, prefill in (("g1", ctx1, prefill1), ("g8", ctx8, served8[4])):
+        state = model.decode_state_init(B, prompt)
+        _, got = counted(torch, lambda: prefill(params, state, inputs))
+        moe_counts_are(got, n_moe, f"ranks (a) prefill {name}")
+        row[f"prefill_launches_{name}"] = got
+        if name == "g8":
+            main = dict(got)
+        del state
+    # G 1 and G 8 must route differently on this router.
+    dk = model.dyskew_init(ctx1)
+    fwd = {name: transformer.forward(params, inputs["tokens"], cfg=cfg, ctx=ctx, dyskew=dk)
+           for name, ctx in (("g1", ctx1), ("g8", ctx8))}
+    gap = float((fwd["g1"][0].float() - fwd["g8"][0].float()).abs().max())
+    row["dropped_frac"] = {n: float(f[1]["metrics"]["moe_dropped_frac"]) for n, f in fwd.items()}
+    row["logit_gap_g1_g8"] = gap
+    check(gap > 0 and row["dropped_frac"]["g1"] != row["dropped_frac"]["g8"],
+          f"ranks (a): G 1 and G 8 route alike on the skewed router ({row['dropped_frac']}, gap {gap})")
+    del fwd
+    row["kernel_path"] = groups_path_check(torch, served8)
+
+    # One train step at G 8 (bf16, remat): twice the layers' launches.
+    data_cfg = train_data_config(cfg.vocab_size)
+    batch = batch_to(next(DataPipeline(data_cfg, device=card)), torch.device(card))
+    for name, ctx in (("g1", ctx1), ("g8", ctx8)):
+        dyskew = model.dyskew_init(ctx, device=card)
+        with torch.enable_grad():
+            _, got = counted(torch, lambda: make_grad_fn(model, ctx)(params, batch, dyskew))
+        moe_counts_are(got, 2 * n_moe, f"ranks (a) train step {name}")
+        row[f"train_launches_{name}"] = got
+        if name == "g8":
+            main = {k: main[k] + got[k] for k in main}
+    del served, served8, params, batch
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        row["train_step_one"] = step_one_checks(torch, build(dataclasses.replace(cfg, dtype="float32")), data_cfg,
+                                                card, ctx=ctx8, prepare=lambda p: skew_router(torch, p))
+    return row, main
+
+
+def groups_path_check(torch, served):
+    """The prompt's forward through the kernels and through the plain
+    versions from the same carried link state, the plain gating replaying
+    the kernel's picks and weights (``PickLog``), so that both forwards are
+    the same bits through all the layers: logits, every layer's link state
+    and the metrics equal, the last layer's picks, counts, plan and buffer
+    equal; the kernel's gate weights against the plain ones from the same
+    logits at the gating check's band (rtol 1e-5, atol 1e-6 of weights at
+    most 1), and the rows where the plain version would pick otherwise
+    counted."""
+    import dataclasses
+
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import moe
+
+    model, ctx, params, inputs, _, _ = served
+    cfg = model.cfg
+    dk = model.dyskew_init(ctx)
+    picks = PickLog()
+    kern = Recorder(dataclasses.replace(moe.KERNEL_OPS, gating=picks.record))
+    plain = Recorder(dataclasses.replace(moe.PLAIN_OPS, gating=picks.replay))
+    logits_k, aux_k = transformer.forward(params, inputs["tokens"], cfg=cfg, ctx=ctx, dyskew=dk, ops=kern.ops)
+    logits_p, aux_p = transformer.forward(params, inputs["tokens"], cfg=cfg, ctx=ctx, dyskew=dk, ops=plain.ops)
+    torch.cuda.synchronize()
+    where = f"{cfg.name} at G {ctx.num_groups}, kernel path"
+    check(torch.equal(logits_k, logits_p), f"{where}: logits")
+    for key, a, b in tree_pairs(aux_k["dyskew"], aux_p["dyskew"]):
+        check(torch.equal(a, b), f"{where}: {key}")
+    compare_dispatch(torch, kern, plain, aux_k["dyskew"]["l0"]["link"], aux_p["dyskew"]["l0"]["link"],
+                     aux_k["metrics"], aux_p["metrics"], where)
+    check(picks.replayed == len(picks.calls), f"{where}: gating calls")
+    check(picks.w_gap <= 1e-5 + 1e-6, f"{where}: gate weights {picks.w_gap} off the plain ones")
+    (_, _, valid), _ = kern.last["dispatch"]
+    return {"layers": picks.replayed, "slots": int(valid.numel()), "valid_frac": float(valid.float().mean()),
+            "logits_equal": True, "link_states_equal": True, "plan_equal": True, "buffer_equal": True,
+            "gate_weight_max_abs_err": picks.w_gap, "plain_pick_flips": picks.flips}
+
+
+def ranks_nccl_one_rank(torch, card):
+    """(b): RANKS_STEPS full granite steps through ``launch/train.py``'s
+    path on a real NCCL group of one rank, under the op counter, against the
+    same steps with no group: losses and parameters the same bits.  Returns
+    (row, the main path's counts)."""
+    import tempfile
+
+    from repro_torch.launch.train import train_ranks
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.roofline.op_cost import OpCounter
+    from repro_torch.train.loop import LoopConfig, train
+
+    cfg = ranks_config()
+    data_cfg = train_data_config(cfg.vocab_size)
+    opt_cfg = OptimizerConfig(name=cfg.optimizer, warmup_steps=1, total_steps=TRAIN_STEPS)
+    loop_cfg = LoopConfig(steps=RANKS_STEPS, log_every=1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        t0 = time.perf_counter()
+        with OpCounter() as counter:
+            grouped, got = counted(torch, lambda: train_ranks(0, 1, cfg, data_cfg, opt_cfg, loop_cfg,
+                                                              init_method="file://" + os.path.join(tmp, "store"),
+                                                              device=card))
+        group_s = time.perf_counter() - t0
+    moe_counts_are(got, 2 * RANKS_STEPS * n_moe_layers(cfg), "ranks (b) NCCL")
+    records = counter.result()["collectives"]
+    del counter
+    t0 = time.perf_counter()
+    alone = train(cfg, data_cfg, opt_cfg, loop_cfg, device=card)
+    alone_s = time.perf_counter() - t0
+    pairs = tree_pairs(grouped["state"], alone["state"])
+    losses = [[h["loss"] for h in r["history"]] for r in (grouped, alone)]
+    check(losses[0] == losses[1], f"ranks (b): losses {losses[0]} with one NCCL rank, {losses[1]} alone")
+    differ = [k for k, a, b in pairs if not torch.equal(a, b)]
+    check(not differ, f"ranks (b): one NCCL rank and no group differ in {differ[:5]}")
+    issued = step_collectives(cfg, 1, grouped["state"]["params"]) * RANKS_STEPS
+    got_bytes = [c["bytes"] for c in records]
+    check(got_bytes == issued and {(c["kind"], c["group"]) for c in records} == {("all-reduce", 1)},
+          f"ranks (b): {len(got_bytes)} collective records against {len(issued)} issued")
+    row = {"backend": "nccl", "world": 1, "steps": RANKS_STEPS, "loss": losses[0], "state_leaves": len(pairs),
+           "equal_to_no_group": True, "collective_records": len(records), "collective_bytes": sum(got_bytes),
+           "records_equal_issued": True, "seconds_with_group": group_s, "seconds_alone": alone_s}
+    del grouped, alone, pairs
+    torch.cuda.empty_cache()
+    return row, got
+
+
+def n_moe_layers(cfg):
+    from repro_torch.models import transformer
+
+    return len(transformer.moe_layer_positions(cfg)) * transformer.num_blocks(cfg)
+
+
+def ranks_one_process(torch, card, path):
+    """(c)'s yardstick: the same steps in one process at num_groups
+    RANKS_WORLD on the global batch; its parameters saved to ``path``."""
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.models.layers.moe import SpmdCtx
+    from repro_torch.models.model_api import build
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.train.step import make_train_step, train_state_init
+
+    cfg = ranks_config(RANKS_LAYERS)
+    model = build(cfg)
+    opt_cfg = OptimizerConfig(name=cfg.optimizer, warmup_steps=1, total_steps=TRAIN_STEPS)
+    ctx = SpmdCtx(num_groups=RANKS_WORLD)
+    state = train_state_init(model, opt_cfg, torch.Generator(device="cuda").manual_seed(0), ctx, card)
+    at_input_fan_in(state["params"])
+    step = make_train_step(model, opt_cfg, ctx=ctx)
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    for batch in ranks_batches(torch, cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    out["dyskew"] = {k: v.cpu().numpy() for k, v in flatten_with_paths(state["dyskew"])}
+    out["params"] = model.num_params()
+    torch.save({k: v.cpu() for k, v in flatten_with_paths(state["params"])}, path)
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def ranks_spawn(reference, where, backend):
+    """RANKS_WORLD processes of ``ranks_rank`` over ``backend`` (a FileStore
+    in ``where``); their results in rank order and the seconds from the
+    first start to the last exit."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    rows = run_ranks(ranks_rank, RANKS_WORLD, reference, backend, timeout=RANKS_TIMEOUT_S, store_dir=where)
+    return rows, time.perf_counter() - t0
+
+
+def ranks_check(torch, one, rows, backend):
+    """(c)'s checks of one run of the ranks against each other and against
+    the one-process run; returns (row, roofline row, the ranks' summed
+    counts)."""
+    import numpy as np
+
+    cfg = ranks_config(RANKS_LAYERS)
+    n_moe = n_moe_layers(cfg)
+    where = f"ranks (c) {backend}"
+    for name in ("plain", "compressed"):
+        for key, a in rows[0][name]["dyskew"].items():
+            check(all(np.array_equal(r[name]["dyskew"][key], a) for r in rows[1:]),
+                  f"{where} {name}: link state {key} differs between ranks")
+        check(all(r[name]["param_sums"] == rows[0][name]["param_sums"] for r in rows[1:]),
+              f"{where} {name}: the ranks' parameters differ")
+        check(all(r[name]["loss"] == rows[0][name]["loss"] for r in rows[1:]), f"{where} {name}: losses differ")
+        check(all(np.isfinite(rows[0][name]["loss"])), f"{where} {name}: a loss is not finite")
+    plain = rows[0]["plain"]
+    for key in ("loss", "grad_norm"):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(plain[key], one[key]))
+        check(rel <= RANKS_LOSS_RTOL, f"{where}: {key} {plain[key]} against one process {one[key]}")
+    link_gap = {}
+    for key, a in one["dyskew"].items():
+        b = plain["dyskew"][key]
+        if key.endswith("ema_loads") or "/metrics/" in key:
+            link_gap[key] = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+        else:
+            check(np.array_equal(a, b), f"{where}: link state {key} against one process")
+    gaps = plain["against_one_process"]
+    for key, g in gaps.items():
+        check(g["max_rel"] <= RANKS_PARAM_TOL or (g["max_over_lr"] <= 2.0 and g["share_off"] <= RANKS_NOISE_SHARE),
+              f"{where}: parameter {key} against one process: {g}")
+    check(rows[0]["compressed"]["loss"][0] == plain["loss"][0], f"{where}: compressed step 1 loss")
+    check(all(r["compressed"]["residual_abs_max"] > 0 for r in rows), f"{where}: no error-feedback residual")
+    coll = rows[0]["collectives"]
+    check(coll["bytes"] == coll["issued"] and coll["kinds"] == [("all-reduce", RANKS_WORLD)],
+          f"{where}: {coll['records']} collective records against {len(coll['issued'])} issued")
+    check(coll["t_collective_s"] > 0, f"{where}: t_collective is 0")
+    for r in rows:
+        moe_counts_are(r["launches"], 2 * 2 * RANKS_STEPS * n_moe, f"{where}: a rank")
+    row = {
+        "backend": backend, "world": RANKS_WORLD,
+        "cards": "one card, shared by the ranks" if backend == "gloo" else "one card a rank",
+        "rank_ms_per_step": {name: [r[name]["ms"] for r in rows] for name in ("plain", "compressed")},
+        "loss": {name: rows[0][name]["loss"] for name in ("plain", "compressed")},
+        "grad_norm": {name: rows[0][name]["grad_norm"] for name in ("plain", "compressed")},
+        "link_states_equal_across_ranks": True, "link_float_gap_to_one_process": max(link_gap.values()),
+        "param_max_rel_gap": max(g["max_rel"] for g in gaps.values()),
+        "param_max_gap_over_lr": max(g["max_over_lr"] for g in gaps.values()),
+        "param_share_off_max": max(g["share_off"] for g in gaps.values()),
+        "peak_memory_bytes": [r["peak_memory_bytes"] for r in rows],
+    }
+    if backend == "gloo":
+        row["timed_note"] = "gloo stages every all_reduce through the host: these are not NCCL's times"
+    roofline = {"phase": "roofline_step", "step": f"{MOE_ARCH} {RANKS_LAYERS} layers, data-parallel train step, "
+                f"rank 0 of {RANKS_WORLD} ({backend})", "collective_records": coll["records"],
+                "collective_bytes_per_rank": sum(coll["bytes"]),
+                "collective_bytes_global": coll["collective_bytes_global"], "collective_by_kind": coll["by_kind"],
+                "t_collective_s": coll["t_collective_s"], "t_compute_s": coll["t_compute_s"],
+                "t_memory_s": coll["t_memory_s"], "records_equal_issued": True}
+    summed = {k: sum(r["launches"][k] for r in rows) for k in rows[0]["launches"]}
+    return row, roofline, summed
+
+
+def ranks_on_cards(torch, card):
+    """(c): RANKS_WORLD ranks of the cut granite sharing the card over gloo,
+    and over NCCL with a card a rank where the machine has RANKS_WORLD
+    cards, each held to the one-process run at num_groups RANKS_WORLD.
+    Returns (row, roofline rows, the ranks' summed counts)."""
+    import shutil
+    import tempfile
+
+    where = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_ranks_")
+    try:
+        reference = os.path.join(where, "one_process.pt")
+        t0 = time.perf_counter()
+        one = ranks_one_process(torch, card, reference)
+        row = {"layers": RANKS_LAYERS, "layers_of": ranks_config().num_layers, "params": one["params"],
+               "dtype": ranks_config(RANKS_LAYERS).dtype, "tokens_per_step": RANKS_WORLD * RANKS_ROWS * TRAIN_SEQ,
+               "steps": RANKS_STEPS, "one_process": {k: one[k] for k in ("loss", "grad_norm", "ms")},
+               "one_process_seconds": time.perf_counter() - t0}
+        backends = ["gloo"]
+        if torch.cuda.device_count() >= RANKS_WORLD:
+            backends.append("nccl")
+        else:
+            row["nccl"] = f"not run: {torch.cuda.device_count()} card(s), NCCL takes one a rank"
+        rooflines, summed = [], {}
+        for backend in backends:
+            rows, seconds = ranks_spawn(reference, where, backend)
+            row[backend], roofline, got = ranks_check(torch, one, rows, backend)
+            row[backend]["seconds"] = seconds
+            rooflines.append(roofline)
+            summed = {k: summed.get(k, 0) + got[k] for k in got}
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    return row, rooflines, summed
+
+
+def phase_ranks(torch, card="cuda"):
+    """Token groups on the card (a), a one-rank NCCL group through the
+    launcher (b), four gloo ranks sharing the card (c), and their
+    collectives counted (d).  Returns the main path's launch counts."""
+    t_start = time.perf_counter()
+    row = {"phase": "ranks"}
+    with torch.no_grad():
+        row["groups"], counts = ranks_groups_on_the_card(torch, card)
+    row["nccl_one_rank"], got = ranks_nccl_one_rank(torch, card)
+    counts = {k: counts.get(k, 0) + got[k] for k in got}
+    # The four ranks need the card to themselves, less this process.  The
+    # cuBLAS workspaces (32 MiB a handle, in the caching allocator) sit in
+    # blocks split from the earlier phases' large segments and would keep
+    # most of them reserved, too much for four ranks beside this process:
+    # freed first, they let ``empty_cache`` give the segments back.
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    row["main_process_bytes"] = {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
+                                 "card_free": free, "card_total": total}
+    row["data_parallel"], rooflines, got = ranks_on_cards(torch, card)
+    counts = {k: counts[k] + got[k] for k in counts}
+    for roofline in rooflines:
+        emit(roofline)
+    row["launches"] = counts
+    row["seconds"] = time.perf_counter() - t_start
+    emit(row)
+    return counts
+
+
+# --------------------------------------------------------------------- #
+# Phase 14: the dry-run and the roofline of whole steps
 # --------------------------------------------------------------------- #
 
 #: The configs whose dry-run cells this phase counts: the six the script
@@ -2905,6 +3457,7 @@ def main() -> int:
     # scan's backward).
     counts["train"] = phase_train(torch, profile=args.profile)
     counts["train_mamba"] = phase_train_mamba(torch, profile=args.profile)
+    counts["ranks"] = phase_ranks(torch)
     # Its launches are held to its own counter records, not to the paths'.
     phase_roofline(torch)
 

@@ -12,7 +12,17 @@
   * saving is asynchronous: the snapshot to host memory happens on the
     caller's thread, the write on a background thread, and the caller blocks
     only on the previous save's completion;
-  * retention: keep the newest K checkpoints.
+  * retention: keep the newest K checkpoints;
+  * elastic across data-parallel ranks (``group``): the state is replicated,
+    so rank 0 writes it and every rank restores it, whatever the number of
+    ranks that wrote it (one process, 2 ranks, 4).  The leaves under
+    ``RANK_LOCAL`` differ from rank to rank (the error-feedback residual of
+    ``allreduce_compressed``): each rank writes its own, as
+    ``step_XXXXXXXX.rank<r>of<R>.npz`` beside the step directory, and reads
+    back the file of its rank at the same world size.  Restored onto
+    another world size, or where that file is missing, such a leaf starts
+    at zero: a residual is what one rank's quantization left over, and has
+    no meaning for another split of the batch.
 """
 
 from __future__ import annotations
@@ -27,7 +37,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import distributed
+
 BF16_RAW = "bfloat16"
+#: Top-level keys of a train state that each rank holds for itself.
+RANK_LOCAL = ("grad_residual",)
 
 
 def flatten_with_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -55,27 +69,67 @@ def _to_host(t: Any) -> Tuple[np.ndarray, Optional[str]]:
     return t.to("cpu", copy=True).numpy(), None
 
 
+def _split(state: Any) -> Tuple[Any, Any]:
+    """(replicated part, rank-local part) of a state dict."""
+    if not isinstance(state, dict):
+        return state, {}
+    return ({k: v for k, v in state.items() if k not in RANK_LOCAL},
+            {k: v for k, v in state.items() if k in RANK_LOCAL})
+
+
+def _snapshot(tree: Any) -> Tuple[List[Tuple[str, np.ndarray]], Dict[str, str]]:
+    leaves, raw = [], {}
+    for key, leaf in flatten_with_paths(tree):
+        arr, kind = _to_host(leaf)
+        leaves.append((key, arr))
+        if kind is not None:
+            raw[key] = kind
+    return leaves, raw
+
+
+def _from_host(arr: np.ndarray, kind: Optional[str], ref: torch.Tensor, key: str) -> torch.Tensor:
+    if kind == BF16_RAW:
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    if tuple(t.shape) != tuple(ref.shape):
+        raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)}, expected {tuple(ref.shape)}")
+    return t.to(device=ref.device, dtype=ref.dtype)
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, group: distributed.Group = None):
         self.directory = directory
         self.keep = keep
+        self.rank = distributed.rank_of(group)
+        self.world = distributed.world_size(group)
         os.makedirs(directory, exist_ok=True)
         self._pending: Optional[threading.Thread] = None
+
+    def _rank_file(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:08d}.rank{self.rank}of{self.world}.npz")
 
     # ------------------------- save -------------------------- #
 
     def save(self, step: int, state: Any, blocking: bool = False) -> None:
-        """Async atomic save. Blocks only if a previous save is running."""
+        """Async atomic save. Blocks only if a previous save is running.
+        Rank 0 writes the replicated state; every rank its ``RANK_LOCAL``
+        leaves, if the state has any."""
         self.wait()
+        replicated, local = _split(state)
         # Snapshot to host memory on the caller's thread.
-        leaves, raw = [], {}
-        for key, leaf in flatten_with_paths(state):
-            arr, kind = _to_host(leaf)
-            leaves.append((key, arr))
-            if kind is not None:
-                raw[key] = kind
+        leaves, raw = _snapshot(replicated) if self.rank == 0 else ([], {})
+        local_leaves, local_raw = _snapshot(local) if local else ([], {})
 
         def _write():
+            if local_leaves:
+                path = self._rank_file(step)
+                tmp = path + ".tmp.npz"
+                np.savez(tmp, **dict(local_leaves), __dtypes__=np.array(json.dumps(local_raw)))
+                os.replace(tmp, path)              # atomic commit
+            if self.rank != 0:
+                self._gc()
+                return
             final = os.path.join(self.directory, f"step_{step:08d}")
             tmp = final + ".tmp"
             if os.path.exists(tmp):
@@ -87,6 +141,7 @@ class CheckpointManager:
                 "time": time.time(),
                 "keys": [k for k, _ in leaves],
                 "dtypes": raw,
+                "world": self.world,
             }
             with open(os.path.join(tmp, "meta.json"), "w") as f:
                 json.dump(meta, f)
@@ -114,9 +169,18 @@ class CheckpointManager:
             self._pending = None
 
     def _gc(self) -> None:
-        steps = self.all_steps()
-        for s in steps[: -self.keep]:
-            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"), ignore_errors=True)
+        """Rank 0 drops the step directories past the newest K, each rank
+        its own rank files past its newest K."""
+        if self.rank == 0:
+            for s in self.all_steps()[: -self.keep]:
+                shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"), ignore_errors=True)
+        mine = sorted(int(name[5:13]) for name in os.listdir(self.directory)
+                      if name.endswith(f".rank{self.rank}of{self.world}.npz"))
+        for s in mine[: -self.keep]:
+            try:
+                os.remove(self._rank_file(s))
+            except FileNotFoundError:
+                pass
 
     # ------------------------ restore ------------------------ #
 
@@ -133,7 +197,9 @@ class CheckpointManager:
 
     def restore(self, like: Any, step: Optional[int] = None) -> Any:
         """Restore into the structure of ``like``: each leaf comes back with
-        the dtype and on the device of ``like``'s leaf at its path."""
+        the dtype and on the device of ``like``'s leaf at its path.  The
+        ``RANK_LOCAL`` leaves of ``like`` come from this rank's file at this
+        world size, or start at zero (see the module docstring)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -141,16 +207,22 @@ class CheckpointManager:
         path = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(path, "meta.json")) as f:
             raw = json.load(f).get("dtypes", {})
+        replicated, local = _split(like)
         out = {}
         with np.load(os.path.join(path, "shard_host0.npz")) as data:
-            for key, leaf in flatten_with_paths(like):
-                ref = torch.as_tensor(leaf)
-                arr = data[key]
-                if raw.get(key) == BF16_RAW:
-                    t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-                else:
-                    t = torch.from_numpy(np.array(arr, copy=True))
-                if tuple(t.shape) != tuple(ref.shape):
-                    raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)}, expected {tuple(ref.shape)}")
-                out[key] = t.to(device=ref.device, dtype=ref.dtype)
-        return _unflatten_like(like, out)
+            for key, leaf in flatten_with_paths(replicated):
+                out[key] = _from_host(data[key], raw.get(key), torch.as_tensor(leaf), key)
+        restored = _unflatten_like(replicated, out)
+        if local:
+            local_out = {}
+            rank_file = self._rank_file(step)
+            if os.path.exists(rank_file):
+                with np.load(rank_file) as data:
+                    local_raw = json.loads(str(data["__dtypes__"]))
+                    for key, leaf in flatten_with_paths(local):
+                        local_out[key] = _from_host(data[key], local_raw.get(key), torch.as_tensor(leaf), key)
+            else:
+                for key, leaf in flatten_with_paths(local):
+                    local_out[key] = torch.zeros_like(torch.as_tensor(leaf))
+            restored = dict(restored, **_unflatten_like(local, local_out))
+        return restored

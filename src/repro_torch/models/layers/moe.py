@@ -15,28 +15,37 @@ Mapping:
                    hot experts when the state machines commit to
                    redistribution (EAGER for training, LATE selectable)
 
-Shapes are fully static: the dispatch buffer is (E, C_buf, d) with
-C_buf = headroom × uniform capacity; the *effective* per-expert capacity is
-data, not shape.  Dispatch is gather-based (sort by expert, rank within
-segment).  The three steps that ``repro`` has Pallas kernels for — router
-softmax/top-k/renormalise, per-expert counts, buffer build — go through
-``repro_torch.kernels``: hand-written CUDA kernels for tensors on the GPU,
-their plain versions for tensors on the CPU.  The expert matrix products
-stay batched ``torch`` products.
+Shapes are fully static: the dispatch buffer is (E, G·C_buf, d) for G token
+groups with C_buf = headroom × uniform capacity of a group; the *effective*
+per-expert capacity is data, not shape.  Dispatch is gather-based (sort by
+group and expert, rank within segment).  The three steps that ``repro`` has
+Pallas kernels for — router softmax/top-k/renormalise, per-expert counts,
+buffer build — go through ``repro_torch.kernels``: hand-written CUDA
+kernels for tensors on the GPU, their plain versions for tensors on the
+CPU.  The expert matrix products stay batched ``torch`` products.
 
-One card holds one token group: ``SpmdCtx.num_groups`` must be 1.  The
-expert-parallel shards remain as the link's sibling instances (the state
-machines observe per-shard loads), though all experts live on one device.
+Token groups follow ``repro``'s G axis: each group has its own capacity,
+sort, ranks and buffer rows, and the link reads the loads summed over all
+groups.  Each kernel still launches once a layer: the gating on all the
+tokens, the histogram on ids offset by ``g·E`` into ``G·E`` bins, the gather
+into all groups' slots.  Across data-parallel ranks (``SpmdCtx.group``) a
+rank holds ``num_groups / world`` of the groups and one ``all_reduce`` a
+layer sums the groups' counts and the router's mean probabilities, so the
+link state and ``ema_loads`` are the same bits on every rank and equal to
+one process's run with all G groups.  The expert-parallel shards remain the
+link's sibling instances (the state machines observe per-shard loads),
+though all experts live on one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import distributed
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config.base import ArchConfig
 from repro_torch.core import state_machine
@@ -57,8 +66,9 @@ from repro_torch.models.perf_flags import get_flags
 class SpmdCtx:
     """Static layout facts the layers need."""
 
-    num_groups: int = 1        # token groups; one card holds exactly one
+    num_groups: int = 1        # token groups over all data-parallel ranks
     num_ep_shards: int = 1     # expert-parallel shards (link instances)
+    group: Any = None          # the data-parallel ProcessGroup (None: one process)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,41 +139,67 @@ def capacities(cfg: ArchConfig, tokens_per_group: int) -> Tuple[int, int]:
     return c_static, c_static * headroom
 
 
+def group_keys(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """(G, N) expert ids → (G·N,) ids of the (group, expert) bins,
+    ``g·E + e``; at one group the ids themselves."""
+    G = flat_e.shape[0]
+    if G == 1:
+        return flat_e.reshape(-1)
+    offs = torch.arange(G, dtype=flat_e.dtype, device=flat_e.device) * num_experts
+    return (flat_e + offs[:, None]).reshape(-1)
+
+
 def dispatch_plan(
-    flat_e: torch.Tensor,            # (N,) int32 expert of each (token, pick)
-    counts: torch.Tensor,            # (E,) float32 routed tokens per expert
+    flat_e: torch.Tensor,            # (G, N) or (N,) int32 expert of each (token, pick)
+    counts: torch.Tensor,            # (G, E) or (E,) float32 routed picks per expert
     cap_e: torch.Tensor,             # (E,) int32 effective capacity
     *,
     c_buf: int,
     top_k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The routing plan: sort the picks by expert (stable, so a token keeps
-    its arrival order inside an expert), rank each inside its expert's
-    segment, keep those under the expert's capacity.
+    """The routing plan of G groups of N picks each: sort each group's
+    picks by expert (stable, so a token keeps its arrival order inside an
+    expert), rank each inside its (group, expert) segment, keep those under
+    the expert's capacity.  One stable sort of the (group, expert) keys
+    does it for all groups at once.
 
-    Returns (order (N,), slot_sorted (N,), keep (N,) bool, src (E*c_buf,)
-    int32, valid (E*c_buf,) bool): pick ``order[i]`` goes to buffer slot
-    ``slot_sorted[i]`` if ``keep[i]``; slot ``s`` is fed by token ``src[s]``
-    where ``valid[s]``.
+    Slots are expert-major, ``(e·G + g)·c_buf + rank``, so the buffer is
+    (E, G·c_buf, d) as the expert products take it; token ``t`` of group
+    ``g`` is row ``g·Tg + t`` of the flattened tokens.
+
+    Returns (order (G·N,), slot_sorted (G·N,), keep (G·N,) bool, src
+    (G·E·c_buf,) int32, valid (G·E·c_buf,) bool): pick ``order[i]`` (of the
+    flattened picks) goes to buffer slot ``slot_sorted[i]`` if ``keep[i]``;
+    slot ``s`` is fed by token ``src[s]`` where ``valid[s]``.  One-dimensional
+    ``flat_e`` and ``counts`` are one group.
     """
-    E = counts.shape[0]
-    N = flat_e.shape[0]
-    n_slots = E * c_buf
+    if flat_e.ndim == 1:
+        flat_e, counts = flat_e[None], counts[None]
+    G, N = flat_e.shape
+    E = counts.shape[-1]
+    n_slots = G * E * c_buf
     dev = flat_e.device
-    flat_e64 = flat_e.to(torch.int64)
-    order = torch.argsort(flat_e64, stable=True)           # (N,)
-    sorted_e = flat_e64[order]
+    keys = group_keys(flat_e, E).to(torch.int64)
+    order = torch.argsort(keys, stable=True)               # (G·N,)
+    sorted_k = keys[order]
     # float32 cumsum cast to int32: exact below 2^24 routed tokens.
+    flat_counts = counts.reshape(-1)
     seg_start = torch.cat(
-        [counts.new_zeros(1), torch.cumsum(counts, dim=-1)[:-1]]
+        [flat_counts.new_zeros(1), torch.cumsum(flat_counts, dim=-1)[:-1]]
     ).to(torch.int32)
-    ranks = torch.arange(N, device=dev) - seg_start[sorted_e]
+    ranks = torch.arange(G * N, device=dev) - seg_start[sorted_k]
+    if G == 1:                      # a key is its expert and its slot block
+        sorted_e = block = sorted_k
+    else:
+        sorted_e = sorted_k % E
+        block = sorted_e * G + sorted_k // E
     keep = ranks < cap_e[sorted_e]
     # Rejected picks are parked in the extra column n_slots, which is
     # sliced off below; duplicate writes land only there.
     slot_sorted = torch.where(
-        keep, sorted_e * c_buf + ranks, torch.full_like(ranks, n_slots)
+        keep, block * c_buf + ranks, torch.full_like(ranks, n_slots)
     )
+    # Flattened pick i is token i // k of the flattened tokens.
     tok_sorted = (order // top_k).to(torch.int32)
     src = torch.zeros(n_slots + 1, dtype=torch.int32, device=dev)
     src[slot_sorted] = tok_sorted
@@ -181,18 +217,27 @@ def moe_apply(
     ctx: SpmdCtx = SpmdCtx(),
     ops: DispatchOps = KERNEL_OPS,
 ) -> Tuple[torch.Tensor, Dict, Dict]:
-    """Returns (y, new_state, metrics); ``state`` is left as it was."""
-    if ctx.num_groups != 1:
-        raise ValueError(
-            f"num_groups={ctx.num_groups}: one device holds one token group"
-        )
+    """Returns (y, new_state, metrics); ``state`` is left as it was.
+
+    With ``ctx.group`` the metrics are the global ones, the same on every
+    rank, and ``moe_aux_loss`` has the global value with this rank's share
+    of its gradient (``distributed.with_local_grad``)."""
     moe = cfg.moe
     B, S, d = x.shape
     E, k = moe.num_experts, moe.top_k
+    G = ctx.num_groups
+    world = distributed.world_size(ctx.group)
     T = B * S
-    N = T * k
-    c_static, c_buf = capacities(cfg, T)
-    n_slots = E * c_buf
+    if G < 1 or G % world or T % (G // world):
+        raise ValueError(
+            f"num_groups={G}: {world} rank(s) of {T} tokens each do not split "
+            "into equal token groups"
+        )
+    Gl = G // world                                        # this rank's groups
+    Tg = T // Gl
+    N = Tg * k
+    c_static, c_buf = capacities(cfg, Tg)
+    n_slots = Gl * E * c_buf
     dev = x.device
 
     xt = x.reshape(T, d)
@@ -202,9 +247,25 @@ def moe_apply(
     gate_w, gate_e = ops.gating(logits, k)                 # (T, k) f32 / i32
 
     # ---- Sibling-observable load metrics (per EP shard) --------------- #
-    flat_e = gate_e.reshape(N)
-    counts = ops.histogram(flat_e, E)                      # (E,) float32
-    loads_e = counts
+    flat_e = gate_e.reshape(Gl, N)
+    counts = ops.histogram(group_keys(flat_e, E), Gl * E).reshape(Gl, E)
+    if ctx.group is None:
+        all_counts = counts
+    else:
+        # One all_reduce a layer: every group's counts (this rank's rows
+        # filled, the others zero) and the router's mean probabilities
+        # over this rank's tokens (every rank holds as many).
+        local_prob = torch.softmax(logits.to(torch.float32), dim=-1).mean(dim=0)
+        rank = distributed.rank_of(ctx.group)
+        mine = counts.new_zeros((G, E))
+        mine[rank * Gl:(rank + 1) * Gl] = counts
+        summed = distributed.all_sum(
+            torch.cat([mine.reshape(-1), local_prob.detach()]), ctx.group
+        )
+        all_counts = summed[:G * E].reshape(G, E)
+    # Global expert loads: the sum over all groups, whole numbers in
+    # float32, so every rank gets the same bits.
+    loads_e = all_counts[0] if G == 1 else all_counts.sum(dim=0)
     n_ep = ctx.num_ep_shards
     shard_loads = loads_e.reshape(n_ep, E // n_ep).sum(dim=-1)   # (n_ep,)
 
@@ -242,7 +303,7 @@ def moe_apply(
         flat_e, counts, cap_e, c_buf=c_buf, top_k=k
     )
 
-    buf = ops.dispatch(xt, src, valid).reshape(E, c_buf, d)
+    buf = ops.dispatch(xt, src, valid).reshape(E, Gl * c_buf, d)
 
     # ---- Expert computation -------------------------------------------- #
     h = F.silu(torch.bmm(buf, p["w_gate"].to(x.dtype))) * torch.bmm(
@@ -253,7 +314,7 @@ def moe_apply(
     if get_flags().moe_scatter_combine:
         # ---- H9 combine: weights placed on the slots, then one
         # scatter-add of the weighted expert outputs by source token.
-        w_sorted = gate_w.reshape(N)[order] * keep
+        w_sorted = gate_w.reshape(-1)[order] * keep
         w_slot = torch.zeros(n_slots + 1, dtype=torch.float32, device=dev)
         w_slot.index_add_(0, slot_sorted, w_sorted.to(torch.float32))
         contrib = y_flat * w_slot[:n_slots, None].to(x.dtype)
@@ -274,13 +335,24 @@ def moe_apply(
             y = y + y_flat[sj] * wj[:, None]
 
     # ---- Telemetry ------------------------------------------------------ #
-    dropped = 1.0 - keep.to(torch.float32).mean()
+    if ctx.group is None:
+        dropped = 1.0 - keep.to(torch.float32).mean()
+    else:
+        # A segment keeps min(count, capacity) picks: every group's kept
+        # picks from the summed counts, as whole numbers.
+        kept = torch.minimum(all_counts, cap_e.to(torch.float32)).sum()
+        dropped = 1.0 - kept / float(G * N)
     imbalance = shard_loads.max() / torch.clamp(shard_loads.mean(), min=1.0)
     # Standard load-balancing auxiliary loss (Switch/GShard): E·Σ f_e·P_e.
     # The fused gating keeps the full probabilities to itself, and this
     # metric needs their mean, so it takes its own softmax of the logits.
     frac_tokens = loads_e / total_load
-    mean_prob = torch.softmax(logits.to(torch.float32), dim=-1).mean(dim=0)
+    if ctx.group is None:
+        mean_prob = torch.softmax(logits.to(torch.float32), dim=-1).mean(dim=0)
+    else:
+        # The mean over all ranks' tokens, with this rank's share of its
+        # gradient (on one rank the local mean, bit for bit).
+        mean_prob = distributed.with_local_grad(summed[G * E:], local_prob) / float(world)
     aux_loss = E * torch.sum(frac_tokens * mean_prob)
     metrics = {
         "moe_dropped_frac": dropped,

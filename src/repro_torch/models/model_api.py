@@ -54,7 +54,10 @@ class Model:
     ) -> Tuple[torch.Tensor, Dict]:
         """batch: tokens (B,S), targets (B,S), and frames (encdec) or
         patches (vlm).  Returns (loss, aux) with the new link states in
-        ``aux["dyskew"]`` when ``dyskew`` is given."""
+        ``aux["dyskew"]`` when ``dyskew`` is given.  With a data-parallel
+        ``ctx.group`` the batch is this rank's rows: the loss and metrics
+        are the global ones, and the gradient is this rank's share, so the
+        ranks' gradients sum to the global batch's."""
         cfg = self.cfg
         if cfg.family == "encdec":
             enc_out = encdec.encode(params, batch["frames"], cfg)
@@ -64,7 +67,7 @@ class Model:
                 params, batch["tokens"], cfg=cfg, ctx=ctx, dyskew=dyskew,
                 prefix_embeds=batch.get("patches"), ops=ops,
             )
-        loss = transformer.lm_loss(logits, batch["targets"])
+        loss = transformer.lm_loss(logits, batch["targets"], group=ctx.group)
         metrics = dict(aux.get("metrics", {}))
         if "moe_aux_loss" in metrics:
             loss = loss + MOE_AUX_COEF * metrics["moe_aux_loss"]

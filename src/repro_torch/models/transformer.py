@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import distributed
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config.base import ArchConfig
 from repro_torch.models.layers import basic
@@ -399,9 +400,13 @@ def lm_loss(
     logits: torch.Tensor,        # (B, S, V)
     targets: torch.Tensor,       # (B, S) integer, -1 = masked
     z_loss: float = 1e-4,
+    group: distributed.Group = None,
 ) -> torch.Tensor:
     """Masked next-token NLL plus ``z_loss``·lse², in float32, over the
-    count of unmasked targets."""
+    count of unmasked targets.  With a data-parallel ``group`` the rows are
+    this rank's part of the global batch: the count is the global one, and
+    the value is the global loss, of which this rank's gradient is its
+    share (``distributed.with_local_grad``)."""
     mask = (targets >= 0).to(torch.float32)
     tgt = torch.clamp(targets, min=0).to(torch.int64)
     logits32 = logits.to(torch.float32)
@@ -409,5 +414,9 @@ def lm_loss(
     gold = torch.gather(logits32, -1, tgt[..., None])[..., 0]
     nll = (lse - gold) * mask
     zl = z_loss * torch.square(lse) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
-    return (nll.sum() + zl.sum()) / denom
+    if group is None:
+        denom = torch.clamp(mask.sum(), min=1.0)
+        return (nll.sum() + zl.sum()) / denom
+    local = nll.sum() + zl.sum()
+    total, count = distributed.all_sum(torch.stack([local.detach(), mask.sum()]), group)
+    return distributed.with_local_grad(total, local) / torch.clamp(count, min=1.0)

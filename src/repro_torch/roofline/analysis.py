@@ -8,16 +8,18 @@ Three terms per (arch × shape × mesh) cell, in seconds:
 
 The port's counterpart of ``repro.roofline.analysis``, with its formulas
 over the H100 constants of ``hw``.  FLOPs and bytes come from
-``op_cost.trace_cost`` (global: the counter sees the whole step).  One card
-runs no collective, so ``collective_bytes_global`` is 0 on the single mesh;
-``collective_wire_bytes`` keeps the reference's ring model for the
-multi-GPU slice, whose ``torch.distributed`` calls are still to be counted.
+``op_cost.trace_cost`` (global: the counter sees the whole step).  The
+collectives are the counter's records of the ``torch.distributed`` calls
+one rank issued (every rank issues the same): each record's wire bytes by
+``collective_wire_bytes``' ring model, summed by kind, times the chips for
+the global bytes, as ``repro`` multiplies its per-device HLO bytes.  A step
+on one card issues none, and its collective terms are 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 from repro_torch.roofline import hw
 
@@ -139,14 +141,24 @@ def model_flops_estimate(n_active_params: int, tokens: int, kind: str) -> float:
     return mult * n_active_params * tokens
 
 
+def collective_bytes_per_device(records) -> Tuple[float, Dict[str, int]]:
+    """Wire bytes one device sends for the counter's collective records:
+    (total, per-kind breakdown)."""
+    by_kind = {k: 0.0 for k in COLLECTIVE_KINDS}
+    for rec in records:
+        by_kind[rec["kind"]] += collective_wire_bytes(rec["kind"], rec["bytes"], rec["group"])
+    return sum(by_kind.values()), {k: int(v) for k, v in by_kind.items()}
+
+
 def analyze(cost: Dict, chips: int, model_flops: float) -> RooflineTerms:
-    """Roofline terms from ``op_cost.trace_cost``'s totals.  One card runs
-    no collective: its bytes are 0 of every kind."""
+    """Roofline terms from ``op_cost.trace_cost``'s totals and its
+    collective records (none on one card: 0 bytes of every kind)."""
+    per_device, by_kind = collective_bytes_per_device(cost.get("collectives", ()))
     return RooflineTerms(
         chips=chips,
         flops_global=float(cost["flops"]),
         hbm_bytes_global=float(cost["bytes"]),
-        collective_bytes_global=0.0,
-        by_kind={k: 0 for k in COLLECTIVE_KINDS},
+        collective_bytes_global=per_device * chips,
+        by_kind=by_kind,
         model_flops=model_flops,
     )

@@ -24,6 +24,14 @@ lie, ``meta`` included (where nothing is allocated and no kernel runs).
              ``peak_memory_in_bytes``, which includes live arguments.
   kernels    {name: {"calls", "flops", "bytes"}} of the hand-written
              kernels, which report themselves (``kernel``).
+  collectives  one record a ``torch.distributed`` collective (the
+             dispatcher's ``c10d`` ops): {"op", "kind", "bytes", "group"},
+             the op's name, its kind in the reference's HLO words
+             (``all-reduce`` ...), the bytes of the tensors it writes (its
+             first argument: the operand of an all-reduce or broadcast, the
+             result of a gather, scatter or all-to-all) and the group's
+             size.  A collective adds nothing to ``flops`` or ``bytes``:
+             ``roofline/analysis.py`` turns the records into wire bytes.
 
 An op whose outputs only alias its inputs' storage without writing them
 (a view, ``detach``, ``_unsafe_view``), an allocation that writes nothing
@@ -72,6 +80,33 @@ aten = torch.ops.aten
 #: Counting either would tie the count to the path.
 _NO_WORK = {aten.empty, aten.empty_strided, aten.empty_like, aten.new_empty, aten.new_empty_strided,
             aten.clone, aten.scalar_tensor}
+
+
+#: ``c10d`` ops by the kind of collective they are.  A broadcast passes the
+#: payload on once a rank in a ring, which is the collective-permute's
+#: model in ``analysis.collective_wire_bytes``.
+COLLECTIVE_OPS = {
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "broadcast_": "collective-permute",
+}
+
+
+def _group_size(args) -> int:
+    """The size of the ProcessGroup among a ``c10d`` op's arguments."""
+    import torch.distributed as dist
+
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return dist.ProcessGroup.unbox(a).size()
+            except RuntimeError:
+                continue                # a ReduceOp, not the group
+    raise ValueError("a c10d op without a process group")
 
 
 #: Products that also add a tensor: one more FLOP an output element.
@@ -124,6 +159,7 @@ class OpCounter(TorchDispatchMode):
         self.dot_flops = 0
         self.bytes = 0
         self.kernels: Dict[str, Dict[str, int]] = {}
+        self.collectives: List[Dict[str, Any]] = []
         #: {op: [calls, flops, bytes]}, to tell two counts apart op by op.
         self.by_op: Dict[Any, List[int]] = {}
         self._kernel_depth = 0
@@ -162,6 +198,8 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.namespace == "c10d":
+            return self._collective(func, args, kwargs)
         out = func(*args, **kwargs)
         outs = _tensors(out, [])
         self.track(outs)
@@ -190,11 +228,22 @@ class OpCounter(TorchDispatchMode):
         row[2] += nbytes
         return out
 
+    def _collective(self, func, args, kwargs):
+        name = func.overloadpacket.__name__
+        kind = COLLECTIVE_OPS.get(name)
+        if kind is not None and not self._kernel_depth:
+            self.collectives.append({
+                "op": name, "kind": kind, "bytes": sum(_nbytes(t) for t in _tensors(args[0], [])),
+                "group": _group_size(args),
+            })
+        return func(*args, **kwargs)
+
     def result(self) -> Dict[str, Any]:
         return {
             "flops": self.flops, "dot_flops": self.dot_flops, "bytes": self.bytes,
             "peak_bytes": self.peak_bytes,
             "kernels": {k: dict(v) for k, v in sorted(self.kernels.items())},
+            "collectives": [dict(c) for c in self.collectives],
         }
 
 

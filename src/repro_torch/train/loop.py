@@ -4,6 +4,12 @@ Runs on one device (``device``, ``None`` = the GPU): DySkew data balancing
 in the pipeline, async checkpointing, and per-step DySkew MoE telemetry.
 Each history entry also carries ``data_wait_s``, the seconds the loop spent
 blocked on the pipeline for that step's batch.
+
+On a mesh of data-parallel ranks (``launch/mesh.py::init_ranks``) every rank
+runs the same seeded ``DataPipeline`` and takes its rows ``[r·B/R,
+(r+1)·B/R)`` of each global batch, one token group a rank; the metrics are
+the global ones on every rank, and only rank 0 calls ``on_metrics`` and
+writes the checkpoint's replicated state.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config.base import ArchConfig
 from repro_torch.data.pipeline import DataConfig, DataPipeline
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.layers.moe import SpmdCtx
 from repro_torch.models.model_api import build
 from repro_torch.optim.optimizers import OptimizerConfig
@@ -40,10 +47,16 @@ def train(
     loop_cfg: LoopConfig,
     on_metrics: Optional[Callable[[int, Dict], None]] = None,
     device: DeviceLike = None,
+    mesh: Mesh = Mesh(),
 ) -> Dict:
     dev = resolve_device(device)
     model = build(cfg)
-    ctx = SpmdCtx()
+    world = mesh.shape["data"]
+    if data_cfg.global_batch % world:
+        raise ValueError(f"a global batch of {data_cfg.global_batch} rows does not split over {world} ranks")
+    rows = data_cfg.global_batch // world
+    lo = mesh.rank * rows
+    ctx = SpmdCtx(num_groups=world, group=mesh.group)
     step_fn = make_train_step(model, opt_cfg, StepConfig(), ctx)
     # Drawn on the host: the same weights on every device.
     gen = torch.Generator().manual_seed(loop_cfg.seed)
@@ -52,7 +65,7 @@ def train(
     ckpt = None
     start_step = 0
     if loop_cfg.checkpoint_dir:
-        ckpt = CheckpointManager(loop_cfg.checkpoint_dir)
+        ckpt = CheckpointManager(loop_cfg.checkpoint_dir, group=mesh.group)
         if ckpt.latest_step() is not None:
             state = ckpt.restore(state)
             start_step = int(state["step"])
@@ -64,6 +77,8 @@ def train(
         for step in range(start_step, loop_cfg.steps):
             t_wait = time.perf_counter()
             batch = next(pipe)
+            if world > 1:
+                batch = {k: v[lo:lo + rows] for k, v in batch.items()}
             data_wait_s = time.perf_counter() - t_wait
             state, metrics = step_fn(state, batch)
             if (step + 1) % loop_cfg.log_every == 0 or step == start_step:
@@ -72,7 +87,7 @@ def train(
                 m["wall_s"] = round(time.time() - t0, 1)
                 m["data_wait_s"] = data_wait_s
                 history.append(m)
-                if on_metrics:
+                if on_metrics and mesh.rank == 0:
                     on_metrics(step + 1, m)
             if ckpt and (step + 1) % loop_cfg.checkpoint_every == 0:
                 ckpt.save(step + 1, state)

@@ -1,10 +1,19 @@
 """Training / serving step builders.
 
 ``make_train_step`` returns the training step: forward + backward +
+(optionally compressed) gradient reduction over the data-parallel ranks +
 global-norm clip + optimizer update + DySkew link-state advance, with
 optional microbatched gradient accumulation (the links tick once per
 microbatch).  The steps are plain closures: there is no compile step, and
 each call runs eagerly on the device its tensors live on.
+
+With a data-parallel group (``SpmdCtx.group``) each rank's batch is its
+rows of the global batch.  Each rank's loss has the global value and its
+share of the global gradient (global denominators, in every microbatch), so
+the SUM of the ranks' gradients is the gradient of ``repro``'s loss on the
+global batch: the plain reduction sums each leaf in float32 (one
+``all_reduce`` a leaf); ``grad_compression`` sends it through
+``allreduce_compressed``.
 """
 
 from __future__ import annotations
@@ -15,11 +24,13 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch import distributed
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.ordered_sums import div
 from repro_torch.models.layers.moe import KERNEL_OPS, DispatchOps, SpmdCtx
 from repro_torch.models.model_api import Model
 from repro_torch.models.param import tree_leaves, tree_map
+from repro_torch.optim.grad_compress import allreduce_compressed, residual_init
 from repro_torch.optim.optimizers import OptimizerConfig, opt_init, opt_update, zip_map
 from repro_torch.optim.specs import opt_state_specs
 
@@ -27,8 +38,8 @@ from repro_torch.optim.specs import opt_state_specs
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     num_microbatches: int = 1
-    # int8 + error-feedback reduction across data-parallel replicas: it
-    # needs more than one device (ROADMAP.md queue A, multi-GPU).
+    # int8 + error-feedback reduction across the data-parallel ranks
+    # (``allreduce_compressed``); it needs a data-parallel group.
     grad_compression: bool = False
 
 
@@ -97,12 +108,17 @@ def make_train_step(
     step_cfg: StepConfig = StepConfig(),
     ctx: SpmdCtx = SpmdCtx(),
 ) -> Callable[[Dict, Dict], Tuple[Dict, Dict]]:
-    """Returns train_step(state, batch) -> (new_state, metrics)."""
-    if step_cfg.grad_compression:
+    """Returns train_step(state, batch) -> (new_state, metrics).  With
+    ``grad_compression`` the state carries this rank's error-feedback
+    residual under ``grad_residual`` (zeros before the first step)."""
+    group = ctx.group
+    if step_cfg.grad_compression and group is None:
         raise NotImplementedError(
-            "compressed gradient reduction needs several devices: ROADMAP.md "
-            "queue A, 'allreduce_compressed'"
+            "compressed gradient reduction needs a data-parallel group "
+            "(SpmdCtx.group): one process has nothing to reduce over; "
+            "ROADMAP.md queue A, 'allreduce_compressed'"
         )
+    world = distributed.world_size(group)
 
     grad_fn = make_grad_fn(model, ctx)
 
@@ -134,6 +150,23 @@ def make_train_step(
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in mmetrics]).mean() for k in mmetrics[0]}
 
+        new_residual = None
+        if step_cfg.grad_compression:
+            # Times the world size, a rank's share is the gradient of its
+            # own rows at the global weighting: the reduction's mean of
+            # those is the global gradient.
+            residual = state.get("grad_residual")
+            if residual is None:
+                residual = residual_init(params)
+            grads, new_residual = allreduce_compressed(
+                zip_map(lambda g: g.to(torch.float32) * world, grads), residual, group
+            )
+        elif group is not None:
+            # In place on float32 leaves: the gradients are this step's own.
+            grads = zip_map(
+                lambda g: distributed.all_sum_(g.to(torch.float32), group).to(g.dtype), grads
+            )
+
         with torch.no_grad():
             new_params, new_opt, stats = opt_update(
                 opt_cfg, grads, state["opt"], params, state["step"]
@@ -141,6 +174,8 @@ def make_train_step(
         new_state = dict(state, params=new_params, opt=new_opt, step=state["step"] + 1)
         if new_dyskew is not None:
             new_state["dyskew"] = new_dyskew
+        if new_residual is not None:
+            new_state["grad_residual"] = new_residual
         metrics = dict(metrics, **stats, loss=loss)
         return new_state, metrics
 

@@ -182,9 +182,13 @@ def test_state_is_not_mutated():
 
 
 def test_more_than_one_group_raises():
+    """More than one token group runs (``tests/test_torch_ranks.py`` holds
+    G 2 and 4 to the reference); a group count that does not divide the
+    tokens into equal groups raises."""
     _, tcfg = _cfgs(True)
     tp = params_from_numpy(_numpy_params(0.0), device="cpu")
-    ctx = tmoe.SpmdCtx(num_groups=2, num_ep_shards=N_EP)
+    assert (B * S) % 3
+    ctx = tmoe.SpmdCtx(num_groups=3, num_ep_shards=N_EP)
     state = tmoe.moe_state_init(tcfg, ctx, device="cpu")
     with pytest.raises(ValueError, match="num_groups"):
         tmoe.moe_apply(tp, torch.zeros(B, S, D), cfg=tcfg, state=state, ctx=ctx)

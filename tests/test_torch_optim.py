@@ -1,10 +1,10 @@
 """The port's optimizers, gradient compression and checkpoint manager
 against ``repro`` on the CPU.
 
-Mirrors ``TestOptimizers``, ``TestGradCompression`` (without
-``allreduce_compressed``, which needs several devices) and
-``TestCheckpoint`` (without the elastic-mesh case) of
-``tests/test_substrate.py``, and adds parity: the same numpy parameters,
+Mirrors ``TestOptimizers``, ``TestGradCompression`` and ``TestCheckpoint``
+of ``tests/test_substrate.py`` on one process (``allreduce_compressed`` over
+ranks and the elastic restore across world sizes are in
+``tests/test_torch_ranks.py``), and adds parity: the same numpy parameters,
 gradients and steps through both sides.  Tolerances: the learning rate
 rtol 1e-6 (float32 cosine, one library's ``cos`` against another's); one
 update's parameters and optimizer states rtol 1e-5 / atol 1e-7 (float32
