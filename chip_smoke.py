@@ -62,6 +62,17 @@ rank (over NCCL too, a card a rank, where the machine has four cards); and
 the collectives each step issued, as the op counter records them, with the
 data-parallel step's ``t_collective``.
 
+``expert_parallel`` checks the model axis: granite at full width and depth
+served (8 × 1024 prefill, 32 greedy decode steps, both combines) on a
+one-rank NCCL mesh whose model group of one runs the all-gathers, the same
+bits as no group (its two train steps are ``ranks``' loop on that mesh);
+then four gloo ranks sharing the card as (data 1, model 4), each with 8 of
+granite's 32 experts, serving it at full width and depth and training it in
+float32 at the depth reckoned from the free card, held to one process at
+``num_ep_shards`` 4, link states the same bits on every rank; and the model
+group's collectives of a prefill (each combine) and a train step, as the op
+counter records them, against what they issue, with ``t_collective``.
+
 Last, ``roofline`` runs the dry-run (``launch/dryrun.py``: every cell of
 the six configs served or trained, counted on ``meta`` tensors) and counts
 six steps at full width with ``roofline/op_cost.py``, once on the card and
@@ -96,6 +107,10 @@ Standard output is one JSON object per line:
                                  counted and priced (t_collective)
     {"phase": "ranks", ...}      token groups on the card, one NCCL rank against no group,
                                  four gloo ranks against one process, launches, seconds
+    {"phase": "expert_parallel_depth"}  the model axis's train depth, reckoned
+    {"phase": "expert_parallel"} one NCCL rank's model group against no group; four gloo
+                                 ranks at (data 1, model 4) served and trained against one
+                                 process; the model group's collectives; launches, seconds
     {"phase": "roofline_cell"}   the dry-run of each cell of the six configs served or
                                  trained (launch/dryrun.py, on meta): status, counts,
                                  roofline terms, peak GB, fits_hbm
@@ -679,6 +694,11 @@ def phase_kernel_checks(torch):
         served = label == "prefill"
         cases.append(dispatch_case(torch, f"{label}_bf16", x, src, valid, timed=True, controls=served))
         cases.append(dispatch_case(torch, f"{label}_f32", x.float(), src, valid, timed=True, controls=served))
+        if served:
+            # A rank of the expert_parallel phase gathers only its shard's
+            # slots: the first EP_MODEL-th of the expert-major buffer.
+            n = src.numel() // EP_MODEL
+            cases.append(dispatch_case(torch, f"{label}_bf16_shard{EP_MODEL}", x, src[:n], valid[:n], timed=True))
         del x, logits, flat_e, src, valid
     torch.cuda.empty_cache()
 
@@ -993,11 +1013,13 @@ def phase_mamba(torch):
 # --------------------------------------------------------------------- #
 
 
-def served_model(torch, arch, layers=None, prompt=PREFILL_LEN):
+def served_model(torch, arch, layers=None, prompt=PREFILL_LEN, ctx=None):
     """The model with random weights from a seed (``layers`` of its depth
     where given), the inputs of its prompt and its two serving steps: 8
     prompts of ``prompt`` tokens, with the encoder-decoder's frames and the
-    VLM's patch embeddings drawn from the same generator."""
+    VLM's patch embeddings drawn from the same generator.  ``ctx`` (default
+    one group, EP_SHARDS link instances) may name a model group: each
+    expert leaf is then this rank's slice of the same draw."""
     import dataclasses
 
     from repro_torch.config.base import get_config
@@ -1009,9 +1031,9 @@ def served_model(torch, arch, layers=None, prompt=PREFILL_LEN):
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build(cfg)
-    ctx = SpmdCtx(num_groups=1, num_ep_shards=EP_SHARDS)
+    ctx = SpmdCtx(num_groups=1, num_ep_shards=EP_SHARDS) if ctx is None else ctx
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = model.init(gen)
+    params = model.init(gen, ctx=ctx)
     inputs = {"tokens": torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, prompt), generator=gen,
                                       device="cuda", dtype=torch.int32)}
     if cfg.family == "encdec":
@@ -1234,19 +1256,25 @@ REDUCED_BATCH, REDUCED_SEQ, REDUCED_PROMPT = 2, 32, 16
 #: stack's (one, two for ``wo``'s heads and head_dim).
 INPUT_AXES = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1, "w_down": 1,
               "w_z": 1, "w_x": 1, "w_B": 1, "w_C": 1, "w_dt": 1, "w_out": 1}
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
-def at_input_fan_in(params) -> None:
+def at_input_fan_in(params, experts=None) -> None:
     """Rescales, in place, every stacked block matrix of ``params`` from the
-    layer count's fan-in to that of its inputs (INPUT_AXES)."""
+    layer count's fan-in to that of its inputs (INPUT_AXES).  ``experts``:
+    the whole experts axis, for a rank that holds a slice of it (the scale
+    is the whole leaf's, as one process applies it)."""
     import math
 
     for key, leaf in params.items():
         if isinstance(leaf, dict):
-            at_input_fan_in(leaf)
+            at_input_fan_in(leaf, experts)
         elif key in INPUT_AXES:
-            fan_in = math.prod(leaf.shape[1:1 + INPUT_AXES[key]])
-            leaf.mul_(math.sqrt(leaf.shape[0] / fan_in))
+            shape = list(leaf.shape)
+            if experts is not None and key in EXPERT_LEAVES:
+                shape[1] = experts
+            fan_in = math.prod(shape[1:1 + INPUT_AXES[key]])
+            leaf.mul_(math.sqrt(shape[0] / fan_in))
 
 
 def band_ratio(got, want, rtol, atol) -> float:
@@ -2708,6 +2736,11 @@ RANKS_TIMEOUT_S = 420
 RANKS_LOSS_RTOL = 1e-3
 RANKS_PARAM_TOL = 1e-5
 RANKS_NOISE_SHARE = 0.01
+#: A rank's allocator, set before its first allocation: ranks share the
+#: card, and segments that grow in place leave less of it reserved and
+#: unused (without it, the whole script ran out of memory in (c) on an
+#: NVIDIA H100 80GB HBM3 with 1.26 GiB of a rank's reserved but unallocated).
+EXPANDABLE = "expandable_segments:True"
 
 
 def ranks_config(layers=None):
@@ -2749,16 +2782,38 @@ def moe_counts_are(counts, n, where):
         check(counts[name] == n, f"{where}: {name} launched {counts[name]} times, expected {n}")
 
 
-def step_collectives(cfg, groups, params):
-    """The bytes of each all_reduce one plain train step issues, in order:
-    a layer's counts and mean probabilities in the forward, the loss's sum
-    and count, the layer's again in the recompute, one float32 sum a
-    parameter leaf."""
+def step_collectives(cfg, groups, params, tokens, data=1, model=None):
+    """(kind, group size, bytes) of each collective one plain train step
+    issues, in order, on a rank with ``data`` data ranks and a model group
+    of ``model`` ranks (None: no model group), ``params`` its own leaves,
+    ``tokens`` its tokens: per MoE layer the counts' and mean
+    probabilities' all_reduce over the data group, and with a model group
+    the all-gather of the expert outputs; the loss's sum and count; each
+    layer's again in the recompute, with a model group followed by
+    ``to_shard``'s all_reduce of the tokens' gradient; one float32 sum a
+    parameter leaf; with a model group the global norm's all_reduce of the
+    expert leaves' sums of squares."""
     from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.models.layers.moe import capacities
 
-    E = cfg.moe.num_experts
-    moe = [4 * (groups * E + E)] * n_moe_layers(cfg)
-    return moe + [8] + (moe if cfg.remat else []) + [4 * p.numel() for _, p in flatten_with_paths(params)]
+    E, d = cfg.moe.num_experts, cfg.d_model
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    Gl = groups // data
+    counts = ("all-reduce", data, 4 * (groups * E + E))
+    fwd = [counts]
+    if model is not None:
+        fwd.append(("all-gather", model, Gl * E * capacities(cfg, tokens // Gl)[1] * d * item))
+    bwd = (fwd if cfg.remat else []) + ([("all-reduce", model, tokens * d * item)] if model is not None else [])
+    n = n_moe_layers(cfg)
+    leaves = flatten_with_paths(params)
+    out = fwd * n + [("all-reduce", data, 8)] + bwd * n + [("all-reduce", data, 4 * p.numel()) for _, p in leaves]
+    if model is not None:
+        out.append(("all-reduce", model, 4 * sum(1 for k, _ in leaves if k.rsplit("/", 1)[-1] in EXPERT_LEAVES)))
+    return out
+
+
+def records_of(counter_result):
+    return [(c["kind"], c["group"], c["bytes"]) for c in counter_result["collectives"]]
 
 
 def ranks_batches(torch, cfg):
@@ -2795,6 +2850,7 @@ def ranks_rank(rank, world, init_method, reference, backend):
     # The machine's cores shared among the ranks (gloo's host staging and
     # the launches).
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = EXPANDABLE
     card = torch.device("cuda", rank if backend == "nccl" else 0)
     mesh = init_ranks(rank, world, device=card, init_method=init_method, backend=backend)
     try:
@@ -2833,12 +2889,11 @@ def ranks_rank(rank, world, init_method, reference, backend):
             del state, step
             torch.cuda.empty_cache()
         res = counter.result()
-        issued = step_collectives(cfg, world, model.abstract_params())
+        issued = step_collectives(cfg, world, model.abstract_params(), RANKS_ROWS * TRAIN_SEQ, data=world)
         tokens = RANKS_WORLD * RANKS_ROWS * TRAIN_SEQ
         terms = analyze(dict(res, flops=res["flops"] * world, bytes=res["bytes"] * world), world,
                         model_flops_estimate(cfg.active_param_count(), tokens, "train"))
-        out["collectives"] = {"records": len(res["collectives"]), "bytes": [c["bytes"] for c in res["collectives"]],
-                              "issued": issued, "kinds": sorted({(c["kind"], c["group"]) for c in res["collectives"]}),
+        out["collectives"] = {"records": len(res["collectives"]), "got": records_of(res), "issued": issued,
                               "t_collective_s": terms.t_collective, "t_compute_s": terms.t_compute,
                               "t_memory_s": terms.t_memory, "collective_bytes_global": terms.collective_bytes_global,
                               "by_kind": terms.by_kind}
@@ -3002,12 +3057,14 @@ def ranks_nccl_one_rank(torch, card):
     check(losses[0] == losses[1], f"ranks (b): losses {losses[0]} with one NCCL rank, {losses[1]} alone")
     differ = [k for k, a, b in pairs if not torch.equal(a, b)]
     check(not differ, f"ranks (b): one NCCL rank and no group differ in {differ[:5]}")
-    issued = step_collectives(cfg, 1, grouped["state"]["params"]) * RANKS_STEPS
-    got_bytes = [c["bytes"] for c in records]
-    check(got_bytes == issued and {(c["kind"], c["group"]) for c in records} == {("all-reduce", 1)},
-          f"ranks (b): {len(got_bytes)} collective records against {len(issued)} issued")
+    # The loop's mesh has a model group of one rank: its records are the
+    # model group's beside the data group's.
+    issued = step_collectives(cfg, 1, grouped["state"]["params"], TRAIN_BATCH * TRAIN_SEQ, model=1) * RANKS_STEPS
+    seen = [(c["kind"], c["group"], c["bytes"]) for c in records]
+    check(seen == issued, f"ranks (b): {len(seen)} collective records against {len(issued)} issued")
     row = {"backend": "nccl", "world": 1, "steps": RANKS_STEPS, "loss": losses[0], "state_leaves": len(pairs),
-           "equal_to_no_group": True, "collective_records": len(records), "collective_bytes": sum(got_bytes),
+           "equal_to_no_group": True, "collective_records": len(records), "kinds": sorted({g[:2] for g in seen}),
+           "collective_bytes": sum(b for _, _, b in seen),
            "records_equal_issued": True, "seconds_with_group": group_s, "seconds_alone": alone_s}
     del grouped, alone, pairs
     torch.cuda.empty_cache()
@@ -3099,8 +3156,8 @@ def ranks_check(torch, one, rows, backend):
     check(rows[0]["compressed"]["loss"][0] == plain["loss"][0], f"{where}: compressed step 1 loss")
     check(all(r["compressed"]["residual_abs_max"] > 0 for r in rows), f"{where}: no error-feedback residual")
     coll = rows[0]["collectives"]
-    check(coll["bytes"] == coll["issued"] and coll["kinds"] == [("all-reduce", RANKS_WORLD)],
-          f"{where}: {coll['records']} collective records against {len(coll['issued'])} issued")
+    check(coll["got"] == coll["issued"], f"{where}: {coll['records']} collective records against "
+          f"{len(coll['issued'])} issued")
     check(coll["t_collective_s"] > 0, f"{where}: t_collective is 0")
     for r in rows:
         moe_counts_are(r["launches"], 2 * 2 * RANKS_STEPS * n_moe, f"{where}: a rank")
@@ -3120,7 +3177,7 @@ def ranks_check(torch, one, rows, backend):
         row["timed_note"] = "gloo stages every all_reduce through the host: these are not NCCL's times"
     roofline = {"phase": "roofline_step", "step": f"{MOE_ARCH} {RANKS_LAYERS} layers, data-parallel train step, "
                 f"rank 0 of {RANKS_WORLD} ({backend})", "collective_records": coll["records"],
-                "collective_bytes_per_rank": sum(coll["bytes"]),
+                "collective_bytes_per_rank": sum(b for _, _, b in coll["got"]),
                 "collective_bytes_global": coll["collective_bytes_global"], "collective_by_kind": coll["by_kind"],
                 "t_collective_s": coll["t_collective_s"], "t_compute_s": coll["t_compute_s"],
                 "t_memory_s": coll["t_memory_s"], "records_equal_issued": True}
@@ -3165,7 +3222,8 @@ def ranks_on_cards(torch, card):
 def phase_ranks(torch, card="cuda"):
     """Token groups on the card (a), a one-rank NCCL group through the
     launcher (b), four gloo ranks sharing the card (c), and their
-    collectives counted (d).  Returns the main path's launch counts."""
+    collectives counted (d).  Returns the main path's launch counts and
+    (b)'s row."""
     t_start = time.perf_counter()
     row = {"phase": "ranks"}
     with torch.no_grad():
@@ -3183,10 +3241,509 @@ def phase_ranks(torch, card="cuda"):
     free, total = torch.cuda.mem_get_info()
     row["main_process_bytes"] = {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
                                  "card_free": free, "card_total": total}
+    emit({"phase": "ranks_spawn_memory", **row["main_process_bytes"]})
     row["data_parallel"], rooflines, got = ranks_on_cards(torch, card)
     counts = {k: counts[k] + got[k] for k in counts}
     for roofline in rooflines:
         emit(roofline)
+    row["launches"] = counts
+    row["seconds"] = time.perf_counter() - t_start
+    emit(row)
+    return counts, row["nccl_one_rank"]
+
+
+# --------------------------------------------------------------------- #
+# Phase 13b: the expert-parallel model axis
+# --------------------------------------------------------------------- #
+
+#: (b): the ranks of a (data 1, model EP_MODEL) mesh, sharing the one card
+#: over gloo, each with E / EP_MODEL of granite's 32 experts.
+EP_MODEL = 4
+#: Seconds each wait on a rank of (b) may take: a process start, the kernel
+#: build, the served model's two combines, the train steps, all through
+#: gloo's host staging.
+EP_TIMEOUT_S = 600
+#: (b)'s train depth is reckoned from these before the run.  A rank's
+#: peak is the larger of two: at the update a float32 parameter costs 32 B
+#: (itself, its gradient, the clipped gradient, AdamW's two moments, and
+#: the new parameter and moments while the old are alive); in the
+#: backward 14 B a parameter beside EP_ACTIVATION_BYTES, the activations
+#: of all 8 × 1024 tokens (every rank of a model group holds its rows: the
+#: float32 logits and their gradient are 1.6 GB each).  The backward's two
+#: constants fit a rank's peaks at 7 and 12 layers, 11,013,041,664 and
+#: 12,125,836,800 B on an NVIDIA H100 80GB HBM3 (PERF.md §6).  The depth
+#: is the most layers whose EP_MODEL ranks fit in EP_CARD_SHARE of the
+#: free card (the rest: the allocator's slack, five CUDA contexts, this
+#: process), and at least EP_MIN_LAYERS.
+EP_UPDATE_BYTES_PER_PARAM = 32
+EP_BACKWARD_BYTES_PER_PARAM = 14
+EP_ACTIVATION_BYTES = 8 * 10 ** 9
+EP_CARD_SHARE = 0.85
+EP_MIN_LAYERS = 6
+#: The served comparison (bf16, all 24 layers), ranks against one process
+#: at num_ep_shards EP_MODEL fed the same tokens: a rank's ``bmm`` over 8
+#: experts may round otherwise than one over 32 (cuBLAS picks its kernel by
+#: the batch too), and H9 adds four bf16 partial sums where one process
+#: adds into one, so the residual stream may move by bf16's rounding
+#: (2^-8) in a layer and carry it through the later ones: logits within
+#: ``EP_SERVE_ATOL · max|logits|`` + ``EP_SERVE_RTOL · |logit|``.  A rank's
+#: greedy token may differ from one process's only where the reference's
+#: two best logits are within twice that band.  H9 adds with atomics on
+#: the card (``index_add_``), so one process's two H9 passes differ
+#: already, and a flipped top-8 pick in one layer moves a token's whole
+#: MoE output: a rank may differ from one process by at most EP_H9_SPREAD
+#: times what one process's second pass differs from its first, in the
+#: largest logit gap and in greedy tokens.
+EP_SERVE_RTOL = 2e-2
+EP_SERVE_ATOL = 2e-2
+EP_H9_SPREAD = 2
+
+
+def ep_train_layers(torch, free):
+    """(b)'s train depth, reckoned from the parameters a rank holds at each
+    depth (see EP_UPDATE_BYTES_PER_PARAM); (layers, the reckoning)."""
+    import dataclasses
+    import math
+
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.models.model_api import build
+    from repro_torch.models.param import expert_axes
+
+    cfg = ranks_config()
+    budget = EP_CARD_SHARE * free / EP_MODEL
+    table = {}
+    for layers in range(1, cfg.num_layers + 1):
+        specs = build(dataclasses.replace(cfg, num_layers=layers)).specs()
+        axes = expert_axes(specs)
+        held = sum(math.prod(p.shape) // (EP_MODEL if k in axes else 1) for k, p in flatten_with_paths(specs))
+        table[layers] = {"params_a_rank": held, "bytes_a_rank": max(
+            EP_UPDATE_BYTES_PER_PARAM * held, EP_BACKWARD_BYTES_PER_PARAM * held + EP_ACTIVATION_BYTES)}
+    fits = [n for n, t in table.items() if t["bytes_a_rank"] <= budget]
+    layers = max(fits + [EP_MIN_LAYERS])
+    return layers, {"layers": layers, "budget_a_rank": budget, "card_free": free,
+                    "at_depth": table[layers], "all_layers": table[cfg.num_layers],
+                    "update_bytes_per_param": EP_UPDATE_BYTES_PER_PARAM,
+                    "backward_bytes_per_param": EP_BACKWARD_BYTES_PER_PARAM,
+                    "activation_bytes": EP_ACTIVATION_BYTES}
+
+
+def ep_served_passes(torch, served, forced=None, combines=(False, True)):
+    """Per combine (False: default, True: H9) a prefill under the op
+    counter, then one serve pass, greedy or fed ``forced[combine]``, its
+    launches counted: {combine: (logits of the real vocabulary, tokens,
+    prefill s, decode s, launches, the counted prefill's collective
+    records)}."""
+    from repro_torch import kernels
+    from repro_torch.models.perf_flags import PerfFlags, use_flags
+    from repro_torch.roofline.op_cost import OpCounter
+
+    model, _, params, inputs, prefill, decode = served
+    B, prompt = inputs["tokens"].shape
+    out = {}
+    for scatter in combines:
+        with use_flags(PerfFlags(moe_scatter_combine=scatter)):
+            # The counted prefill also pays the one-off costs (gloo's
+            # first buffers, library handles) before the timed pass.
+            with OpCounter() as counter:
+                prefill(params, model.decode_state_init(B, prompt), inputs)
+            state = model.decode_state_init(B, prompt + DECODE_STEPS)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = prefill(params, state, inputs)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            all_logits, toks = [logits], []
+            t0 = time.perf_counter()
+            for i in range(DECODE_STEPS):
+                tok = torch.argmax(logits, dim=-1).to(torch.int32) if forced is None else forced[scatter][i].cuda()
+                toks.append(tok)
+                logits, state = decode(params, state, tok)
+                all_logits.append(logits)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            out[scatter] = (torch.cat(all_logits, dim=1)[..., :model.cfg.vocab_size].cpu(), torch.stack(toks).cpu(),
+                            prefill_s, decode_s, kernels.launch_counts(), records_of(counter.result()))
+            del state, all_logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def ep_train(torch, card, layers, ctx, batches, experts):
+    """RANKS_STEPS AdamW steps of granite cut to ``layers`` in float32 at
+    ``ctx`` on the whole global batch, the first under the op counter:
+    (state, losses, grad norms, ms, records, launches)."""
+    from repro_torch import kernels
+    from repro_torch.models.model_api import build
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.roofline.op_cost import OpCounter
+    from repro_torch.train.step import make_train_step, train_state_init
+
+    cfg = ranks_config(layers)
+    model = build(cfg)
+    opt_cfg = OptimizerConfig(name=cfg.optimizer, warmup_steps=1, total_steps=TRAIN_STEPS)
+    state = train_state_init(model, opt_cfg, torch.Generator(device="cuda").manual_seed(0), ctx, card)
+    at_input_fan_in(state["params"], experts)
+    step = make_train_step(model, opt_cfg, ctx=ctx)
+    run = {"loss": [], "grad_norm": [], "ms": []}
+    kernels.reset_launch_counts()
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            with OpCounter() as counter:
+                state, m = step(state, batch)
+        else:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        run["ms"].append((time.perf_counter() - t0) * 1e3)
+        run["loss"].append(float(m["loss"]))
+        run["grad_norm"].append(float(m["grad_norm"]))
+    run["lr"] = float(m["lr"])
+    run["launches"] = kernels.launch_counts()
+    run["records"] = records_of(counter.result())
+    run["cost"] = {k: counter.result()[k] for k in ("flops", "bytes")}
+    return state, run
+
+
+def ep_rank(rank, world, init_method, where, layers):
+    """Rank ``rank`` of (b): granite served at full width and depth with
+    its slice of the experts, fed the one process's greedy tokens, both
+    combines; then trained at ``layers`` in float32.  Each rank holds its
+    logits and its parameters to the one process's (files in ``where``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.launch.mesh import init_ranks
+    from repro_torch.models.layers.moe import SpmdCtx
+    from repro_torch.models.model_api import build
+    from repro_torch.models.param import expert_axes, slice_experts
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = EXPANDABLE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    card = torch.device("cuda", 0)
+    mesh = init_ranks(rank, world, device=card, init_method=init_method, backend="gloo", model=world)
+    try:
+        ctx = SpmdCtx(num_groups=1, num_ep_shards=world, group=mesh.group, ep_group=mesh.ep_group)
+        with torch.no_grad():
+            served = served_model(torch, MOE_ARCH, ctx=ctx)
+            E = served[0].cfg.moe.num_experts
+            at_input_fan_in(served[2], E)
+            want = torch.load(os.path.join(where, "served.pt"))
+            runs = ep_served_passes(torch, served, forced=want["tokens"])
+        out = {"experts_held": tuple(served[2]["blocks"]["l0"]["moe"]["w_gate"].shape)}
+        out["serve"] = {}
+        for scatter, (logits, toks, prefill_s, decode_s, launches, records) in runs.items():
+            ref = want["logits"][scatter]
+            scale = float(ref.float().abs().max())
+            gap = (logits.float() - ref.float()).abs()
+            band = EP_SERVE_ATOL * scale + EP_SERVE_RTOL * ref.float().abs()
+            top2 = ref.float().topk(2, dim=-1).values
+            near_tie = (top2[..., 0] - top2[..., 1]) <= 2 * (EP_SERVE_ATOL * scale + EP_SERVE_RTOL * top2[..., 0].abs())
+            own = logits.argmax(dim=-1)
+            want_tok = ref.argmax(dim=-1)
+            flips = own != want_tok
+            out["serve"][scatter] = {
+                "band_ratio": float((gap / band).max()), "max_abs_gap": float(gap.max()), "scale": scale,
+                "bitwise_equal": bool(torch.equal(logits, ref)), "flips": int(flips.sum()),
+                "flips_outside_near_ties": int((flips & ~near_tie).sum()), "positions": int(flips.numel()),
+                "checksum": float(logits.double().sum()), "prefill_s": prefill_s, "decode_s": decode_s,
+                "launches": launches, "records": records}
+        del served, runs, want
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        ref_params = torch.load(os.path.join(where, "params.pt"), mmap=True)
+        batches = [{k: v.to(card) for k, v in b.items()} for b in ranks_batches(torch, ranks_config(layers))]
+        torch.cuda.reset_peak_memory_stats(card)
+        state, run = ep_train(torch, card, layers, ctx, batches, E)
+        run["peak_memory_bytes"] = torch.cuda.max_memory_allocated(card)
+        run["dyskew"] = {k: v.cpu().numpy() for k, v in flatten_with_paths(state["dyskew"])}
+        axes = expert_axes(build(ranks_config(layers)).specs())
+        want_p = slice_experts(ref_params, axes, mesh.model_rank, world)
+        gaps = {}
+        for key, p in flatten_with_paths(state["params"]):
+            ref = want_p[key]
+            diff = (p.cpu() - ref).abs()
+            scale = float(ref.abs().max())
+            gaps[key] = {"max_rel": float(diff.max()) / scale, "max_over_lr": float(diff.max()) / run["lr"],
+                         "share_off": float((diff > RANKS_PARAM_TOL * scale).float().mean())}
+        run["against_one_process"] = gaps
+        run["param_sums"] = {k: float(p.double().sum()) for k, p in flatten_with_paths(state["params"])}
+        run["expert_leaf_shapes"] = {k: tuple(p.shape) for k, p in flatten_with_paths(state["params"]) if k in axes}
+        run["issued"] = step_collectives(ranks_config(layers), 1, state["params"], TRAIN_BATCH * TRAIN_SEQ,
+                                         model=world)
+        out["train"] = run
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def ep_one_process(torch, card, where, layers):
+    """(b)'s yardstick in this process at num_ep_shards EP_MODEL, all
+    experts on the card: the served passes (greedy), their logits and
+    tokens saved for the ranks, then the train steps at ``layers``, their
+    parameters saved."""
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.models.layers.moe import SpmdCtx
+
+    ctx = SpmdCtx(num_groups=1, num_ep_shards=EP_MODEL)
+    served = served_model(torch, MOE_ARCH, ctx=ctx)
+    at_input_fan_in(served[2])
+    runs = ep_served_passes(torch, served)
+    # H9 adds with atomics: its own spread, a second pass fed the first's
+    # tokens.
+    again = ep_served_passes(torch, served, forced={True: runs[True][1]}, combines=(True,))[True][0]
+    h9_self = {"max_abs_gap": float((again.float() - runs[True][0].float()).abs().max()),
+               "flips": int((again.argmax(dim=-1) != runs[True][0].argmax(dim=-1)).sum()),
+               "bitwise_equal": bool(torch.equal(again, runs[True][0]))}
+    torch.save({"logits": {c: r[0] for c, r in runs.items()}, "tokens": {c: r[1] for c, r in runs.items()}},
+               os.path.join(where, "served.pt"))
+    out = {"serve": {c: {"prefill_s": r[2], "decode_s": r[3], "records": r[5],
+                         "distinct_tokens": len({tuple(t.flatten().tolist()) for t in r[1]})}
+                     for c, r in runs.items()}, "h9_self": h9_self}
+    for c, r in runs.items():
+        check(bool(torch.isfinite(r[0].float()).all()), f"expert_parallel (b) one process: logits not finite")
+        check(out["serve"][c]["distinct_tokens"] > 1, "expert_parallel (b) one process: decode repeats one token")
+    del served, runs, again
+    torch.cuda.empty_cache()
+    batches = [{k: v.to(card) for k, v in b.items()} for b in ranks_batches(torch, ranks_config(layers))]
+    torch.cuda.reset_peak_memory_stats()
+    state, run = ep_train(torch, card, layers, ctx, batches, None)
+    run["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    run["dyskew"] = {k: v.cpu().numpy() for k, v in flatten_with_paths(state["dyskew"])}
+    torch.save({k: v.cpu() for k, v in flatten_with_paths(state["params"])}, os.path.join(where, "params.pt"))
+    out["train"] = run
+    del state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_one_rank(torch, card, nccl_train):
+    """(a): granite at full width and depth served (8 × 1024 prefill, 32
+    greedy decode steps, the default combine) on a one-rank NCCL mesh
+    (data 1, model 1), through the model group's all-gathers, against no
+    group: the logits of every step, the tokens, and the link states of a
+    carried forward the same bits.  H9's ``index_add_`` adds with atomics
+    on the card, so its bits vary from run to run with or without a group:
+    (b) holds it in a band.  Its two train steps are ``ranks`` (b)'s
+    (``nccl_train``), whose loop now runs on the same mesh.  Returns (row,
+    the main path's counts)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import init_ranks
+    from repro_torch.models import transformer
+    from repro_torch.models.layers.moe import SpmdCtx
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        mesh = init_ranks(0, 1, device=torch.device("cuda", 0), init_method="file://" + os.path.join(tmp, "store"))
+        try:
+            grouped = SpmdCtx(group=mesh.group, ep_group=mesh.ep_group)
+            model, _, params, inputs, _, _ = served = served_model(torch, MOE_ARCH, ctx=grouped)
+            alone = SpmdCtx()
+            runs = {"group": served, "alone": (model, alone, params, inputs, make_prefill_step(model, alone),
+                                               make_decode_step(model, alone))}
+            row = {"backend": "nccl", "mesh": mesh.shape, "layers": model.cfg.num_layers, "combine": "default"}
+            got = {}
+            for name, s in runs.items():
+                kernels.reset_launch_counts()
+                _, logits, toks, prefill_s, decode_s = serve_pass(torch, s)
+                launches = kernels.launch_counts()
+                moe_counts_are(launches, n_moe_layers(model.cfg) * (1 + DECODE_STEPS),
+                               f"expert_parallel (a) {name}")
+                if name == "group":
+                    counts = launches
+                _, aux = transformer.forward(params, inputs["tokens"], cfg=model.cfg, ctx=s[1],
+                                             dyskew=model.dyskew_init(s[1]))
+                got[name] = (logits, toks, aux["dyskew"], prefill_s, decode_s)
+            where = "expert_parallel (a)"
+            (la, ta, da, *_), (lb, tb, db, *_) = got["group"], got["alone"]
+            check(all(torch.equal(a, b) for a, b in zip(la, lb)), f"{where}: logits differ from no group")
+            check(all(torch.equal(a, b) for a, b in zip(ta, tb)), f"{where}: tokens differ from no group")
+            pairs = tree_pairs(da, db)
+            check(all(torch.equal(a, b) for _, a, b in pairs), f"{where}: link states differ from no group")
+            row["serve"] = {
+                "logits_equal": True, "tokens_equal": True, "link_leaves_equal": len(pairs),
+                "prefill_s_group": got["group"][3], "prefill_s_alone": got["alone"][3],
+                "decode_s_group": got["group"][4], "decode_s_alone": got["alone"][4]}
+            del got, served, runs, params
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    check(nccl_train["equal_to_no_group"] and ["all-gather", 1] in [list(k) for k in nccl_train["kinds"]],
+          "expert_parallel (a): ranks (b)'s train steps did not run through the model group")
+    row["train"] = {"by": "ranks (b): the same loop on the same one-rank mesh", "loss": nccl_train["loss"],
+                    "equal_to_no_group": True, "collective_records": nccl_train["collective_records"]}
+    return row, counts
+
+
+def prefill_collectives(cfg, tokens, scatter):
+    """(kind, group size, bytes) of each collective a rank of (b) issues in
+    a prefill of ``tokens``: a MoE layer's counts over its data group of
+    one, then the expert outputs' all-gather over the model group (default
+    combine) or the partial output's all_reduce (H9)."""
+    from repro_torch.models.layers.moe import capacities
+
+    E, d = cfg.moe.num_experts, cfg.d_model
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    combine = (("all-reduce", EP_MODEL, tokens * d * item) if scatter
+               else ("all-gather", EP_MODEL, E * capacities(cfg, tokens)[1] * d * item))
+    return [("all-reduce", 1, 4 * 2 * E), combine] * n_moe_layers(cfg)
+
+
+def ep_check(torch, one, rows, layers):
+    """(b)'s checks of the ranks against each other and against the one
+    process; returns (row, the ranks' summed counts)."""
+    import numpy as np
+
+    from repro_torch.roofline.analysis import analyze
+
+    cfg = ranks_config(layers)
+    E = cfg.moe.num_experts
+    n_serve = n_moe_layers(ranks_config())
+    where = "expert_parallel (b)"
+    for r in rows:
+        check(r["experts_held"][1] == E // EP_MODEL, f"{where}: a rank holds {r['experts_held']}")
+        for key, shape in r["train"]["expert_leaf_shapes"].items():
+            check(shape[1] == E // EP_MODEL, f"{where}: {key} is {shape} on a rank")
+    serve = {}
+    for scatter in (False, True):
+        name = "h9" if scatter else "default"
+        got = [r["serve"][scatter] for r in rows]
+        check(all(g["checksum"] == got[0]["checksum"] for g in got), f"{where} {name}: the ranks' logits differ")
+        own = one["h9_self"]
+        for g in got:
+            if scatter:
+                check(g["max_abs_gap"] <= EP_H9_SPREAD * own["max_abs_gap"] and
+                      g["flips"] <= EP_H9_SPREAD * own["flips"],
+                      f"{where} h9: logits {g['max_abs_gap']} and {g['flips']} greedy tokens off one process, "
+                      f"which is {own['max_abs_gap']} and {own['flips']} off itself")
+            else:
+                check(g["band_ratio"] <= 1.0, f"{where} {name}: logits {g['band_ratio']} of the band off one process")
+                check(g["flips_outside_near_ties"] == 0, f"{where} {name}: {g['flips_outside_near_ties']} greedy "
+                      "tokens differ from one process's where its two best logits are apart")
+            moe_counts_are(g["launches"], n_serve * (1 + DECODE_STEPS), f"{where} {name}: a rank's serve pass")
+        records = got[0]["records"]
+        issued = prefill_collectives(ranks_config(), PREFILL_BATCH * PREFILL_LEN, scatter)
+        check(all(g["records"] == issued for g in got), f"{where} {name}: a rank's prefill records against the "
+              "collectives it issued")
+        kinds = {}
+        for kind, group, nbytes in records:
+            kinds.setdefault(f"{kind} x{group}", []).append(nbytes)
+        terms = analyze({"flops": 0, "bytes": 0, "collectives": [
+            {"kind": k, "bytes": b, "group": g} for k, g, b in records]}, EP_MODEL, 0.0)
+        serve[name] = {key: got[0][key] for key in ("band_ratio", "max_abs_gap", "scale", "bitwise_equal",
+                                                    "flips", "positions")}
+        if scatter:
+            serve[name]["one_process_against_itself"] = own
+        serve[name].update(
+            prefill_s=[g["prefill_s"] for g in got], decode_s=[g["decode_s"] for g in got],
+            one_process_prefill_s=one["serve"][scatter]["prefill_s"],
+            one_process_decode_s=one["serve"][scatter]["decode_s"],
+            prefill_records={k: {"count": len(v), "bytes": sum(v)} for k, v in kinds.items()},
+            prefill_wire_bytes_a_rank=terms.collective_bytes_global / EP_MODEL, prefill_t_collective_s=terms.t_collective)
+
+    train = [r["train"] for r in rows]
+    for key, a in train[0]["dyskew"].items():
+        check(all(np.array_equal(t["dyskew"][key], a) for t in train[1:]), f"{where}: link state {key} differs "
+              "between ranks")
+    check(all(t["loss"] == train[0]["loss"] and t["grad_norm"] == train[0]["grad_norm"] for t in train[1:]),
+          f"{where}: the ranks' losses or grad norms differ")
+    base = one["train"]
+    for key in ("loss", "grad_norm"):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(train[0][key], base[key]))
+        check(rel <= RANKS_LOSS_RTOL, f"{where}: {key} {train[0][key]} against one process {base[key]}")
+    link_gap = {}
+    for key, a in base["dyskew"].items():
+        b = train[0]["dyskew"][key]
+        if key.endswith("ema_loads") or "/metrics/" in key:
+            link_gap[key] = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+        else:
+            check(np.array_equal(a, b), f"{where}: link state {key} against one process")
+    worst = {"max_rel": 0.0, "max_over_lr": 0.0, "share_off": 0.0}
+    for t in train:
+        for key, g in t["against_one_process"].items():
+            check(g["max_rel"] <= RANKS_PARAM_TOL or (g["max_over_lr"] <= 2.0 and g["share_off"] <= RANKS_NOISE_SHARE),
+                  f"{where}: parameter {key} against one process: {g}")
+            worst = {k: max(worst[k], g[k]) for k in worst}
+    for t in train:
+        moe_counts_are(t["launches"], 2 * RANKS_STEPS * n_moe_layers(cfg), f"{where}: a rank's train steps")
+    check(all(t["records"] == t["issued"] for t in train), f"{where}: a rank's train records against the "
+          "collectives it issued")
+    kinds = {}
+    for kind, group, nbytes in train[0]["records"]:
+        kinds.setdefault(f"{kind} x{group}", []).append(nbytes)
+    terms = analyze({"flops": train[0]["cost"]["flops"], "bytes": train[0]["cost"]["bytes"],
+                     "collectives": [{"kind": k, "bytes": b, "group": g} for k, g, b in train[0]["records"]]},
+                    EP_MODEL, 0.0)
+    row = {
+        "serve": serve,
+        "train": {"layers": layers, "layers_of": ranks_config().num_layers, "dtype": cfg.dtype,
+                  "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ, "steps": RANKS_STEPS,
+                  "loss": train[0]["loss"], "grad_norm": train[0]["grad_norm"],
+                  "one_process": {k: base[k] for k in ("loss", "grad_norm", "ms", "peak_memory_bytes")},
+                  "rank_ms_per_step": [t["ms"] for t in train],
+                  "peak_memory_bytes": [t["peak_memory_bytes"] for t in train],
+                  "link_states_equal_across_ranks": True, "link_float_gap_to_one_process": max(link_gap.values()),
+                  "param_gap_worst": worst,
+                  "records": {k: {"count": len(v), "bytes": sum(v)} for k, v in kinds.items()},
+                  "wire_bytes_a_rank": terms.collective_bytes_global / EP_MODEL,
+                  "t_collective_s": terms.t_collective},
+        "timed_note": "gloo stages every collective through the host: these are not NCCL's times",
+    }
+    summed = {}
+    for r in rows:
+        for got in [r["serve"][False]["launches"], r["serve"][True]["launches"], r["train"]["launches"]]:
+            summed = {k: summed.get(k, 0) + got[k] for k in got}
+    return row, summed
+
+
+def phase_expert_parallel(torch, nccl_train, card="cuda"):
+    """The model axis: one NCCL rank with a model group of one against no
+    group (a); granite's 32 experts over EP_MODEL gloo ranks sharing the
+    card, served at full width and depth and trained at full width, held
+    to one process at num_ep_shards EP_MODEL (b); the collectives of a
+    prefill and a train step on the model group (c).  Returns the main
+    path's launch counts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+
+    t_start = time.perf_counter()
+    row = {"phase": "expert_parallel", "mesh_b": {"data": 1, "model": EP_MODEL}}
+    with torch.no_grad():
+        row["one_rank"], counts = ep_one_rank(torch, card, nccl_train)
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    row["main_process_bytes"] = {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
+                                 "card_free": free}
+    layers, row["train_depth"] = ep_train_layers(torch, free)
+    emit({"phase": "expert_parallel_depth", **row["train_depth"], "main_process_bytes": row["main_process_bytes"]})
+    where = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_ep_")
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            one = ep_one_process(torch, card, where, layers)
+        row["one_process_seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rows = run_ranks(ep_rank, EP_MODEL, where, layers, timeout=EP_TIMEOUT_S, store_dir=where)
+        row["ranks_seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    row["ranks"], got = ep_check(torch, one, rows, layers)
+    counts = {k: counts.get(k, 0) + got[k] for k in got}
     row["launches"] = counts
     row["seconds"] = time.perf_counter() - t_start
     emit(row)
@@ -3457,7 +4014,8 @@ def main() -> int:
     # scan's backward).
     counts["train"] = phase_train(torch, profile=args.profile)
     counts["train_mamba"] = phase_train_mamba(torch, profile=args.profile)
-    counts["ranks"] = phase_ranks(torch)
+    counts["ranks"], nccl_train = phase_ranks(torch)
+    counts["expert_parallel"] = phase_expert_parallel(torch, nccl_train)
     # Its launches are held to its own counter records, not to the paths'.
     phase_roofline(torch)
 
@@ -3490,10 +4048,11 @@ def main() -> int:
             rows[-1].update(d_states_equal=all(m["d_states_equal"] for m in mine),
                             d_decay_max_rel_err=max(m["d_decay_max_rel_err"] for m in mine),
                             d_decay_rtol=BWD_DECAY_RTOL)
-        kimi = next((c for c in mine if c["case"] == "kimi_" + case_name), None)
-        if kimi is not None:
-            rows[-1]["kimi"] = {key: kimi[key] for key in (
-                "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms", "bytes")}
+        for other, key in (("kimi_" + case_name, "kimi"), (f"{case_name}_shard{EP_MODEL}", "shard")):
+            c = next((c for c in mine if c["case"] == other), None)
+            if c is not None:
+                rows[-1][key] = {k: c[k] for k in (
+                    "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms", "bytes")}
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

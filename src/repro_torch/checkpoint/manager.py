@@ -23,6 +23,20 @@
     another world size, or where that file is missing, such a leaf starts
     at zero: a residual is what one rank's quantization left over, and has
     no meaning for another split of the batch.
+  * elastic across the model axis (``ep_group``, with ``experts``, the
+    ``{key path: axis}`` of the state's expert leaves,
+    ``param.expert_axes``): each rank holds its slice of an expert leaf,
+    so ``save`` all-gathers each one over the model group of data rank 0
+    and the file holds whole leaves, as one process writes them;
+    ``restore`` slices each for the restoring rank's model index.  A
+    checkpoint written at (data 1, model 2) restores at (data 1, model 4),
+    at (data 2, model 1) and in one process.  The rank files of a mesh
+    with a model axis are named by the global rank and both axes,
+    ``rank<r>of<D>x<M>``.  The MoE links keep one state machine an
+    expert-parallel shard: restored onto another shard count, a link leaf
+    (under ``dyskew/``, shaped by its shard count) starts from ``like``'s,
+    since the shards it described are not this mesh's; ``ema_loads``, an
+    expert's, comes back.
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import distributed
+from repro_torch.models.param import expert_shard
 
 BF16_RAW = "bfloat16"
 #: Top-level keys of a train state that each rank holds for itself.
@@ -98,16 +113,37 @@ def _from_host(arr: np.ndarray, kind: Optional[str], ref: torch.Tensor, key: str
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, group: distributed.Group = None):
+    def __init__(self, directory: str, keep: int = 3, group: distributed.Group = None,
+                 ep_group: distributed.Group = None, experts: Optional[Dict[str, int]] = None):
         self.directory = directory
         self.keep = keep
-        self.rank = distributed.rank_of(group)
-        self.world = distributed.world_size(group)
+        self.ep_group = ep_group
+        self.experts = experts or {}
+        self.data_rank = distributed.rank_of(group)
+        self.model_rank = distributed.rank_of(ep_group)
+        self.model_size = distributed.world_size(ep_group)
+        data = distributed.world_size(group)
+        self.rank = self.data_rank * self.model_size + self.model_rank
+        self.world = data * self.model_size
+        self._tag = f"of{data}" if self.model_size == 1 else f"of{data}x{self.model_size}"
         os.makedirs(directory, exist_ok=True)
         self._pending: Optional[threading.Thread] = None
 
     def _rank_file(self, step: int) -> str:
-        return os.path.join(self.directory, f"step_{step:08d}.rank{self.rank}of{self.world}.npz")
+        return os.path.join(self.directory, f"step_{step:08d}.rank{self.rank}{self._tag}.npz")
+
+    def _whole(self, replicated: Any) -> Any:
+        """The replicated part with each expert leaf gathered whole over
+        the model group (only data rank 0's group, which writes)."""
+        if self.ep_group is None or self.data_rank != 0:
+            return replicated
+        leaves = {}
+        for key, leaf in flatten_with_paths(replicated):
+            if key in self.experts:
+                axis = self.experts[key]
+                leaf = distributed.gather_shards(leaf.movedim(axis, 0), self.ep_group).movedim(0, axis)
+            leaves[key] = leaf
+        return _unflatten_like(replicated, leaves)
 
     # ------------------------- save -------------------------- #
 
@@ -117,6 +153,7 @@ class CheckpointManager:
         leaves, if the state has any."""
         self.wait()
         replicated, local = _split(state)
+        replicated = self._whole(replicated)
         # Snapshot to host memory on the caller's thread.
         leaves, raw = _snapshot(replicated) if self.rank == 0 else ([], {})
         local_leaves, local_raw = _snapshot(local) if local else ([], {})
@@ -175,7 +212,7 @@ class CheckpointManager:
             for s in self.all_steps()[: -self.keep]:
                 shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"), ignore_errors=True)
         mine = sorted(int(name[5:13]) for name in os.listdir(self.directory)
-                      if name.endswith(f".rank{self.rank}of{self.world}.npz"))
+                      if name.endswith(f".rank{self.rank}{self._tag}.npz"))
         for s in mine[: -self.keep]:
             try:
                 os.remove(self._rank_file(s))
@@ -197,9 +234,10 @@ class CheckpointManager:
 
     def restore(self, like: Any, step: Optional[int] = None) -> Any:
         """Restore into the structure of ``like``: each leaf comes back with
-        the dtype and on the device of ``like``'s leaf at its path.  The
-        ``RANK_LOCAL`` leaves of ``like`` come from this rank's file at this
-        world size, or start at zero (see the module docstring)."""
+        the dtype and on the device of ``like``'s leaf at its path, an
+        expert leaf as this rank's slice.  The ``RANK_LOCAL`` leaves of
+        ``like`` come from this rank's file at this mesh shape, or start at
+        zero (see the module docstring)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -211,7 +249,14 @@ class CheckpointManager:
         out = {}
         with np.load(os.path.join(path, "shard_host0.npz")) as data:
             for key, leaf in flatten_with_paths(replicated):
-                out[key] = _from_host(data[key], raw.get(key), torch.as_tensor(leaf), key)
+                arr = data[key]
+                if key in self.experts:
+                    arr = expert_shard(arr, self.experts[key], self.model_rank, self.model_size)
+                ref = torch.as_tensor(leaf)
+                if key.startswith("dyskew/") and arr.shape != tuple(ref.shape):
+                    out[key] = ref.clone()
+                    continue
+                out[key] = _from_host(arr, raw.get(key), ref, key)
         restored = _unflatten_like(replicated, out)
         if local:
             local_out = {}

@@ -1,13 +1,27 @@
-"""Sums and maxima over the data-parallel ranks of a ``torch.distributed``
-process group, for the layers, the loss and the train step.
+"""Collectives over a ``torch.distributed`` process group, for the layers,
+the loss and the train step.
 
 ``group=None`` means one process: every function then returns its input's
-value and issues nothing.  Each collective runs on a detached copy, so no
-``all_reduce`` is ever on a differentiable path; ``with_local_grad`` gives
-a global value a local term's gradient, so that the ranks' gradients sum to
-the gradient of the global value.  Every rank must
-call these in the same order (the MoE layers' calls are issued again when
-remat recomputes a block in the backward, on every rank alike).
+value and issues nothing.  Every rank must call these in the same order
+(the MoE layers' calls are issued again when remat recomputes a block in
+the backward, on every rank alike).
+
+Over the data-parallel ranks (``all_sum``, ``all_max``) each collective
+runs on a detached copy, so no ``all_reduce`` is ever on a differentiable
+path; ``with_local_grad`` gives a global value a local term's gradient, so
+that the ranks' gradients sum to the gradient of the global value.
+
+Over the expert-parallel ranks of a model group, ``to_shard``,
+``gather_shards`` and ``sum_shards`` are differentiable, in Megatron's
+conjugate pairs.  Their backwards hold because everything downstream of
+them is computed alike on every rank of the group (the same tokens, the
+same replicated weights), so every rank holds the same upstream gradient:
+``gather_shards`` gives back this rank's slice of it (a reduce-scatter
+would scale it by the group's size), and ``to_shard`` sums the partial
+gradients of a replicated tensor that each rank used only for its own
+shard.  ``torch.distributed.nn.functional``'s ``all_gather`` and
+``all_reduce`` assume split downstream work instead and would give M times
+the gradient here.
 """
 
 from __future__ import annotations
@@ -62,3 +76,59 @@ def with_local_grad(total: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
     """``total``'s value (the same bits on every rank: ``local - local`` is
     an exact zero) with ``local``'s gradient."""
     return total + (local - local.detach())
+
+
+class _ToShard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(g, ctx.group, dist.ReduceOp.SUM), None
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.rank, ctx.rows = dist.get_rank(group), t.shape[0]
+        t = t.contiguous()
+        out = t.new_empty((dist.get_world_size(group) * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(0, ctx.rank * ctx.rows, ctx.rows), None
+
+
+class _SumShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def to_shard(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """``t`` (replicated over the model group) as the input of this rank's
+    shard of work: the identity forward, its gradient summed over the
+    group in the backward."""
+    return t if group is None else _ToShard.apply(t, group)
+
+
+def gather_shards(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along dim 0 in rank order (one
+    all-gather); the backward keeps this rank's rows of the gradient."""
+    return t if group is None else _GatherShards.apply(t, group)
+
+
+def sum_shards(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The sum of the ranks' partial ``t`` (one all_reduce); the backward
+    passes the gradient through to each rank's part."""
+    return t if group is None else _SumShards.apply(t, group)

@@ -1,16 +1,22 @@
-"""The port's mesh: data-parallel ranks over ``torch.distributed``, with
-axes ``data`` (the ranks) and ``model`` 1.
+"""The port's mesh: ranks over ``torch.distributed`` with axes ``data`` and
+``model``, laid out as ``repro.launch.mesh`` lays out a TPU pod.
 
-``repro.launch.mesh`` lays a TPU pod out as (data 16, model 16) and two pods
-as (pod 2, data 16, model 16).  Here one process is the mesh (data 1, model
-1), and ``init_ranks`` makes rank ``rank`` of ``world`` after
-``torch.distributed.init_process_group``: each rank holds the whole model
-and its rows of every batch.  The backend follows the device, NCCL for
-``cuda`` (one card a rank) and gloo for ``cpu``, with no fallback from one
-to the other.  A ``model`` axis above 1 (experts sharded over cards, the
-dispatch buffers moved by ``all_to_all``) and the pod shapes are the
-expert-parallel slice (``ROADMAP.md`` queue A): they raise rather than
-quietly give a data-parallel mesh.
+``repro`` lays a pod out as (data 16, model 16) and two pods as (pod 2,
+data 16, model 16).  Here one process is the mesh (data 1, model 1), and
+``init_ranks`` makes rank ``r`` of a (data D, model M) mesh after
+``torch.distributed.init_process_group``, with ``r = d·M + m`` (the model
+index innermost, as ``jax.make_mesh((data, model))`` orders devices) and
+two process groups: the **data group** of the D ranks with the same ``m``
+(the loss's and the gradients' sums, the link's loads) and the **model
+group** of the M ranks with the same ``d``.  The ranks of a model group
+hold the same rows of every batch and the same replicated parameters; each
+holds E/M of the experts (``experts`` → ``model``, the one rule of
+``repro``'s ``default_rules`` carried so far, ``models/param.py``).  The
+backend follows the device, NCCL for ``cuda`` (one card a rank) and gloo
+for ``cpu``, with no fallback from one to the other.  The rest of the
+``model`` axis (heads, mlp, vocab), FSDP of ``embed`` over ``data`` and the
+pod shapes are ``ROADMAP.md`` queue A: they raise rather than quietly give
+another mesh.
 """
 
 from __future__ import annotations
@@ -26,22 +32,35 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-_MULTI_GPU = ("a model axis across several cards is the multi-GPU expert-parallel slice "
-              "(ROADMAP.md queue A: experts sharded over cards, all_to_all of the dispatch "
-              "buffers); the port's mesh has data-parallel ranks only")
+_MULTI_GPU = ("the pod meshes are multi-GPU work still to port (ROADMAP.md queue A: a dry-run "
+              "of a (data 16, model 16) rank, tensor parallelism and FSDP over the model and "
+              "data groups); the port's mesh shards the data axis and the experts only")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     axes: Tuple[str, ...] = ("data", "model")
     sizes: Tuple[int, ...] = (1, 1)
-    #: The data-parallel ProcessGroup (None: one process).
+    #: The data group: the ranks with this rank's model index (None: one
+    #: process).
     group: Any = None
+    #: The global rank, ``data_rank · M + model_rank``.
     rank: int = 0
+    #: The model group: the ranks with this rank's data index, over which
+    #: the experts are sharded (None: one process).
+    ep_group: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axes, self.sizes))
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.shape["model"]
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.shape["model"]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -95,13 +114,15 @@ def init_ranks(
     model: int = 1,
 ) -> Mesh:
     """``init_process_group`` for rank ``rank`` of ``world`` on ``device``;
-    returns the mesh (data ``world``, model 1).  ``backend`` defaults to
-    ``backend_for(device)``: naming ``gloo`` for CUDA tensors puts several
-    ranks on one card (gloo stages each ``all_reduce`` through the host).
-    NCCL takes a card a rank and raises when the ranks outnumber the cards;
-    ``model`` above 1 raises."""
-    if model != 1:
-        raise NotImplementedError(_MULTI_GPU)
+    returns the mesh (data ``world / model``, model ``model``) with its two
+    groups (see the module docstring), made by ``new_group`` on every rank
+    in the same order (the whole world where a group spans it).
+    ``backend`` defaults to ``backend_for(device)``: naming ``gloo`` for
+    CUDA tensors puts several ranks on one card (gloo stages each
+    collective through the host).  NCCL takes a card a rank and raises when
+    the ranks outnumber the cards."""
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide {world} ranks")
     backend = backend or backend_for(device)
     if backend == "nccl":
         cards = torch.cuda.device_count()
@@ -112,7 +133,15 @@ def init_ranks(
             )
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
-    return Mesh(sizes=(world, 1), group=dist.group.WORLD, rank=rank)
+    data = world // model
+    groups = {}
+    for kind, members in (("model", [[d * model + m for m in range(model)] for d in range(data)]),
+                          ("data", [[d * model + m for d in range(data)] for m in range(model)])):
+        for ranks in members:
+            g = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+            if rank in ranks:
+                groups[kind] = g
+    return Mesh(sizes=(data, model), group=groups["data"], rank=rank, ep_group=groups["model"])
 
 
 def torchrun_env() -> Optional[Tuple[int, int, int]]:

@@ -4,17 +4,19 @@
       --steps 4 --batch 8 --seq 1024
 
 runs on the GPU; ``--device cpu --reduced`` runs the same-family small
-config in float32 on the host.  Data-parallel ranks:
+config in float32 on the host.  Ranks on a (data, model) mesh:
 
-  python -m repro_torch.launch.train ... --ranks 4
-  torchrun --nproc-per-node 4 -m repro_torch.launch.train ...
+  python -m repro_torch.launch.train ... --ranks 4 [--model 2]
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train ... [--model 4]
 
 ``--ranks N`` spawns N local processes that meet over a ``FileStore`` in a
 temporary directory; under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK`` set) each process is one rank.  On the GPU each rank takes
 its own card over NCCL (more ranks than cards raise), with ``--device cpu``
-the ranks meet over gloo.  ``--batch`` is the global batch; each rank trains
-on its rows of it, and rank 0 logs and checkpoints.
+the ranks meet over gloo.  ``--model M`` makes the mesh (data ranks / M,
+model M): the M ranks of a model group train on the same rows, each with
+E/M of every MoE layer's experts.  ``--batch`` is the global batch, split
+over the data ranks; rank 0 logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -41,13 +43,14 @@ RANK_TIMEOUT_S = 6 * 3600
 def train_ranks(
     rank: int, world: int, cfg, data_cfg: DataConfig, opt_cfg: OptimizerConfig, loop_cfg: LoopConfig, *,
     init_method: str, device: Optional[str] = None, local_rank: Optional[int] = None,
-    on_metrics: Optional[Callable[[int, Dict], None]] = None,
+    on_metrics: Optional[Callable[[int, Dict], None]] = None, model: int = 1,
 ) -> Dict:
-    """Rank ``rank`` of ``world``: join the process group (the device's
-    backend), run ``train/loop.py::train`` on this rank's rows, leave the
-    group.  Returns the loop's output."""
+    """Rank ``rank`` of ``world`` on a mesh with a model axis of ``model``:
+    join the process group (the device's backend), run
+    ``train/loop.py::train`` on this rank's rows, leave the group.  Returns
+    the loop's output."""
     dev = rank_device(device, rank if local_rank is None else local_rank)
-    mesh = init_ranks(rank, world, device=dev, init_method=init_method)
+    mesh = init_ranks(rank, world, device=dev, init_method=init_method, model=model)
     try:
         return train(cfg, data_cfg, opt_cfg, loop_cfg, on_metrics=on_metrics, device=dev, mesh=mesh)
     finally:
@@ -65,7 +68,8 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt", type=str, default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="torch device (default: the GPU)")
-    ap.add_argument("--ranks", type=int, default=1, help="data-parallel ranks to spawn on this machine")
+    ap.add_argument("--ranks", type=int, default=1, help="ranks to spawn on this machine")
+    ap.add_argument("--model", type=int, default=1, help="the model axis: ranks that share a batch and split the experts")
     return ap.parse_args(argv)
 
 
@@ -98,7 +102,7 @@ def _spawned(rank: int, world: int, init_method: str, argv) -> None:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     args = parse(argv)
     out = train_ranks(rank, world, *configs(args), init_method=init_method, device=args.device,
-                      on_metrics=log)
+                      on_metrics=log, model=args.model)
     if rank == 0:
         report(out)
 
@@ -119,7 +123,7 @@ def main(argv=None) -> None:
     if env is not None:
         rank, world, local = env
         out = train_ranks(rank, world, *configs(args), init_method="env://", device=args.device,
-                          local_rank=local, on_metrics=log)
+                          local_rank=local, on_metrics=log, model=args.model)
         if rank == 0:
             report(out)
     elif args.ranks > 1:

@@ -32,9 +32,23 @@ into all groups' slots.  Across data-parallel ranks (``SpmdCtx.group``) a
 rank holds ``num_groups / world`` of the groups and one ``all_reduce`` a
 layer sums the groups' counts and the router's mean probabilities, so the
 link state and ``ema_loads`` are the same bits on every rank and equal to
-one process's run with all G groups.  The expert-parallel shards remain the
-link's sibling instances (the state machines observe per-shard loads),
-though all experts live on one device.
+one process's run with all G groups.
+
+Across the expert-parallel ranks of a model group (``SpmdCtx.ep_group``,
+``num_ep_shards`` = its size M) the layout is GSPMD's for ``repro``'s
+mesh: the M ranks hold the same tokens, and rank m holds experts
+``[m·E/M, (m+1)·E/M)`` of ``w_gate`` / ``w_up`` / ``w_down``.  Gating,
+histogram, the link's tick and the routing plan run whole on every rank,
+the same bits on each; the slots are expert-major, so a shard's slots are
+one contiguous range of ``src`` / ``valid``, and the gather kernel fills
+only those.  The default combine all-gathers the expert outputs over the
+group; H9 (``moe_scatter_combine``) adds this rank's weighted outputs by
+token and all-reduces the partial ``y`` (T·d on the wire instead of
+E·C·d).  No token moves between ranks.  The router stays whole on every
+rank, where ``repro``'s spec shards its experts axis too: its softmax and
+top-k need all E logits, and the replicated product computes the same
+function.  The M link instances are the shards' state machines, ticked on
+the same summed loads on every rank.
 """
 
 from __future__ import annotations
@@ -69,6 +83,14 @@ class SpmdCtx:
     num_groups: int = 1        # token groups over all data-parallel ranks
     num_ep_shards: int = 1     # expert-parallel shards (link instances)
     group: Any = None          # the data-parallel ProcessGroup (None: one process)
+    ep_group: Any = None       # the model group the experts are sharded over
+
+    def __post_init__(self):
+        if self.ep_group is not None and distributed.world_size(self.ep_group) != self.num_ep_shards:
+            raise ValueError(
+                f"num_ep_shards={self.num_ep_shards} against a model group of "
+                f"{distributed.world_size(self.ep_group)} rank(s): each rank holds one shard"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,6 +261,16 @@ def moe_apply(
     c_static, c_buf = capacities(cfg, Tg)
     n_slots = Gl * E * c_buf
     dev = x.device
+    ep = ctx.ep_group
+    shards = distributed.world_size(ep)
+    if E % shards:
+        raise ValueError(f"num_ep_shards={shards} does not divide the {E} experts")
+    El = E // shards                                       # this rank's experts
+    if p["w_gate"].shape[0] != El:
+        raise ValueError(f"{p['w_gate'].shape[0]} experts held a rank, against {E} over {shards} shard(s)")
+    # This rank's slots: its experts' blocks of the expert-major buffer.
+    n_local = n_slots // shards
+    lo = distributed.rank_of(ep) * n_local
 
     xt = x.reshape(T, d)
 
@@ -303,25 +335,31 @@ def moe_apply(
         flat_e, counts, cap_e, c_buf=c_buf, top_k=k
     )
 
-    buf = ops.dispatch(xt, src, valid).reshape(E, Gl * c_buf, d)
+    # Each rank's gradient of ``xt`` through the gather covers its own
+    # slots: ``to_shard`` sums them over the model group.
+    src_l, valid_l = src[lo:lo + n_local], valid[lo:lo + n_local]
+    buf = ops.dispatch(distributed.to_shard(xt, ep), src_l, valid_l).reshape(El, Gl * c_buf, d)
 
     # ---- Expert computation -------------------------------------------- #
     h = F.silu(torch.bmm(buf, p["w_gate"].to(x.dtype))) * torch.bmm(
         buf, p["w_up"].to(x.dtype)
     )
-    y_flat = torch.bmm(h, p["w_down"].to(x.dtype)).reshape(n_slots, d)
+    y_local = torch.bmm(h, p["w_down"].to(x.dtype)).reshape(n_local, d)
 
     if get_flags().moe_scatter_combine:
         # ---- H9 combine: weights placed on the slots, then one
-        # scatter-add of the weighted expert outputs by source token.
-        w_sorted = gate_w.reshape(-1)[order] * keep
+        # scatter-add of the weighted expert outputs by source token,
+        # partial on each rank and summed over the model group.
+        w_sorted = distributed.to_shard(gate_w, ep).reshape(-1)[order] * keep
         w_slot = torch.zeros(n_slots + 1, dtype=torch.float32, device=dev)
         w_slot.index_add_(0, slot_sorted, w_sorted.to(torch.float32))
-        contrib = y_flat * w_slot[:n_slots, None].to(x.dtype)
+        contrib = y_local * w_slot[lo:lo + n_local, None].to(x.dtype)
         y = torch.zeros((T, d), dtype=x.dtype, device=dev)
-        y.index_add_(0, src.to(torch.int64), contrib)
+        y.index_add_(0, src_l.to(torch.int64), contrib)
+        y = distributed.sum_shards(y, ep)
     else:
         # ---- Combine (unrolled over k to bound gather temporaries) ----- #
+        y_flat = distributed.gather_shards(y_local, ep)    # (n_slots, d)
         slot_unsorted = torch.empty_like(slot_sorted)
         slot_unsorted[order] = slot_sorted
         keep_unsorted = torch.empty_like(keep)

@@ -8,6 +8,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import distributed
 from repro_torch._device import DeviceLike
 from repro_torch.config.base import ArchConfig
 from repro_torch.models import encdec, transformer
@@ -28,9 +29,13 @@ class Model:
             return encdec.model_specs(self.cfg)
         return transformer.model_specs(self.cfg)
 
-    def init(self, generator: torch.Generator, dtype=None, device: DeviceLike = None) -> Dict:
+    def init(self, generator: torch.Generator, dtype=None, device: DeviceLike = None,
+             ctx: SpmdCtx = SpmdCtx()) -> Dict:
+        """Parameters drawn from ``generator``; with a model group
+        (``ctx.ep_group``) each expert leaf holds this rank's experts."""
         dt = dtype if dtype is not None else transformer.model_dtype(self.cfg)
-        return tree_materialize(self.specs(), generator, dtype_override=dt, device=device)
+        shard = (distributed.rank_of(ctx.ep_group), distributed.world_size(ctx.ep_group))
+        return tree_materialize(self.specs(), generator, dtype_override=dt, device=device, shard=shard)
 
     def abstract_params(self, dtype=None) -> Dict:
         """The parameters as ``meta`` tensors (for the dry-run): the

@@ -2,9 +2,15 @@
 
 Every model parameter is declared as a ``ParamSpec`` carrying its shape and
 *logical* axis names ("embed", "heads", "mlp", "experts", "vocab", ...).
-The names are kept so that spec trees read the same as in ``repro``; the
-rule table that maps them to mesh axes is not carried over, since one card
-has no mesh to shard over.  ``tree_abstract`` builds a spec tree as
+The names are kept so that spec trees read the same as in ``repro``.  Of
+the rule table that maps them to mesh axes (``repro``'s ``default_rules``)
+the port carries one rule, ``experts`` → ``model``: a leaf whose leading
+named axis is ``experts`` (a stack of per-expert matrices: ``w_gate``,
+``w_up``, ``w_down``) is sliced over the mesh's model axis, rank m holding
+experts ``[m·E/M, (m+1)·E/M)`` (``expert_axes``, ``slice_experts``).  The
+router's ``experts`` axis is its output, and stays whole on every rank: its
+softmax and top-k need all E logits.  The other rules (heads, mlp, vocab;
+``embed`` FSDP over ``data``) are ``ROADMAP.md`` queue A.  ``tree_abstract`` builds a spec tree as
 ``meta`` tensors, which the dry-run traces where ``repro`` lowers
 ``ShapeDtypeStruct``s: shapes and dtypes, nothing allocated.
 """
@@ -13,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,28 +64,75 @@ def tree_leaves(tree: Any) -> List[Any]:
     return out
 
 
+def expert_axis(p: ParamSpec) -> Optional[int]:
+    """The axis of ``p`` that the model axis slices: its ``experts`` axis
+    where that is its leading named axis, else None."""
+    named = [i for i, a in enumerate(p.axes) if a is not None]
+    return named[0] if named and p.axes[named[0]] == "experts" else None
+
+
+def expert_axes(tree: Any, prefix: str = "") -> Dict[str, int]:
+    """{``/``-joined key path: axis} of the spec tree's leaves that the
+    model axis slices."""
+    if isinstance(tree, dict):
+        out: Dict[str, int] = {}
+        for k in sorted(tree):
+            out.update(expert_axes(tree[k], f"{prefix}{k}/"))
+        return out
+    axis = expert_axis(tree)
+    return {} if axis is None else {prefix[:-1]: axis}
+
+
+def expert_shard(a: Any, axis: int, rank: int, size: int) -> Any:
+    """Rank ``rank``'s ``E/size`` experts of ``a`` (a tensor or an array)
+    along ``axis``: a view."""
+    experts = a.shape[axis]
+    if experts % size:
+        raise ValueError(f"a model axis of {size} does not divide {experts} experts")
+    n = experts // size
+    return a[(slice(None),) * axis + (slice(rank * n, (rank + 1) * n),)]
+
+
+def slice_experts(tree: Any, axes: Dict[str, int], rank: int, size: int, prefix: str = "") -> Any:
+    """``tree`` (tensors or arrays, keyed as the spec tree of ``axes``)
+    with each leaf that ``axes`` names cut to rank ``rank``'s experts of a
+    model axis of ``size`` (views); the other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: slice_experts(tree[k], axes, rank, size, f"{prefix}{k}/") for k in tree}
+    axis = axes.get(prefix[:-1])
+    return tree if axis is None else expert_shard(tree, axis, rank, size)
+
+
 def tree_materialize(
     tree: Any,
     generator: torch.Generator,
     dtype_override: Any = None,
     device: DeviceLike = None,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Any:
     """Real initialization: normal leaves are drawn in float32 from
     ``generator`` on the generator's own device, leaf by leaf in sorted
     key order, scaled by ``scale`` or 1/sqrt(fan_in), then cast and put on
-    ``device`` (a host generator gives the same weights on every device)."""
+    ``device`` (a host generator gives the same weights on every device).
+    ``shard`` = (model rank, model axis): each expert leaf is drawn whole
+    and sliced to the rank's experts, so a rank's shard is the slice of
+    the one-process init at the same seed."""
     dev = resolve_device(device)
 
     def make(p: ParamSpec) -> torch.Tensor:
         dt = dtype_override if dtype_override is not None else p.dtype
         if p.init == "zeros":
-            return torch.zeros(p.shape, dtype=dt, device=dev)
-        if p.init == "ones":
-            return torch.ones(p.shape, dtype=dt, device=dev)
-        fan_in = p.shape[0] if len(p.shape) >= 2 else max(p.shape[-1], 1)
-        scale = p.scale if p.scale is not None else 1.0 / math.sqrt(fan_in)
-        draw = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=generator.device)
-        return (scale * draw).to(device=dev, dtype=dt)
+            out = torch.zeros(p.shape, dtype=dt, device=dev)
+        elif p.init == "ones":
+            out = torch.ones(p.shape, dtype=dt, device=dev)
+        else:
+            fan_in = p.shape[0] if len(p.shape) >= 2 else max(p.shape[-1], 1)
+            scale = p.scale if p.scale is not None else 1.0 / math.sqrt(fan_in)
+            out = scale * torch.randn(p.shape, generator=generator, dtype=torch.float32, device=generator.device)
+        axis = expert_axis(p)
+        if axis is not None and shard[1] > 1:
+            out = expert_shard(out, axis, *shard).clone()
+        return out.to(device=dev, dtype=dt)
 
     return tree_map(make, tree)
 

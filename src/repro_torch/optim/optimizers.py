@@ -5,16 +5,24 @@ Self-contained; state trees follow the parameter tree (nested dicts of
 tensors), and an update writes each parameter back in its own dtype, as
 ``repro.optim.optimizers`` does: there is no float32 master copy.  Every
 function here works on values, under ``torch.no_grad``.
+
+Under a model group (``Shards``) an expert leaf holds this rank's slice
+of the whole leaf.  What reads a whole leaf sums its slices over the group:
+the global norm (one ``all_reduce`` of the expert leaves' sums of squares;
+the replicated leaves are counted once, as every rank holds them whole)
+and Adafactor's update RMS (one ``all_reduce`` an expert leaf).  AdamW is
+element-wise and needs nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import distributed
 from repro_torch.core.ordered_sums import div
 from repro_torch.models.param import tree_leaves
 
@@ -66,14 +74,30 @@ def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(
-        sum(torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(tree))
-    )
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """The parameter leaves sliced over a model group: ``leaves`` is a tree
+    of bools at the parameters' leaves (True: this rank holds a slice),
+    ``group`` the model group."""
+
+    leaves: Any
+    group: Any
 
 
-def clip_by_global_norm(tree: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
-    norm = global_norm(tree)
+def global_norm(tree: Any, shards: Optional[Shards] = None) -> torch.Tensor:
+    """The norm of the whole tree, the leaves added in tree order."""
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(tree)]
+    if shards is not None:
+        mine = [i for i, sliced in enumerate(tree_leaves(shards.leaves)) if sliced]
+        if mine:
+            summed = distributed.all_sum(torch.stack([sq[i] for i in mine]), shards.group)
+            for j, i in enumerate(mine):
+                sq[i] = summed[j]
+    return torch.sqrt(sum(sq))
+
+
+def clip_by_global_norm(tree: Any, max_norm: float, shards: Optional[Shards] = None) -> Tuple[Any, torch.Tensor]:
+    norm = global_norm(tree, shards)
     # A tensor numerator: ``float / tensor`` multiplies by the reciprocal.
     scale = torch.clamp(torch.full_like(norm, max_norm) / torch.clamp(norm, min=1e-9), max=1.0)
     return zip_map(lambda g: g * scale.to(g.dtype), tree), norm
@@ -133,12 +157,21 @@ def adafactor_init(params: Any, cfg: OptimizerConfig) -> Dict:
 
 def adafactor_update(
     cfg: OptimizerConfig, grads: Any, state: Dict, params: Any, step: torch.Tensor,
+    shards: Optional[Shards] = None,
 ) -> Tuple[Any, Dict]:
     lr = lr_schedule(cfg, step)
     t = step.to(torch.float32) + 1.0
     decay = 1.0 - torch.pow(t, -0.8)
+    sliced = shards.leaves if shards is not None else zip_map(lambda p: False, params)
 
-    def upd(p, g, v):
+    def mean_square(u, whole):
+        if whole:
+            return torch.mean(torch.square(u))
+        # A slice: the whole leaf's sum over its element count.
+        total = distributed.all_sum(torch.sum(torch.square(u)), shards.group)
+        return total / float(u.numel() * distributed.world_size(shards.group))
+
+    def upd(p, g, v, part):
         g32 = torch.square(g.to(torch.float32)) + 1e-30
         if "vr" in v:
             vr = decay * v["vr"] + (1 - decay) * torch.mean(g32, dim=-1)
@@ -152,13 +185,13 @@ def adafactor_update(
             new_v = {"v": vv}
         u = g.to(torch.float32) * precond
         # Update clipping (RMS <= 1), per Adafactor.
-        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+        rms = torch.sqrt(mean_square(u, not part) + 1e-30)
         u = u / torch.clamp(rms, min=1.0)
         p32 = p.to(torch.float32)
         delta = u + cfg.weight_decay * p32
         return (p32 - lr * delta).to(p.dtype), new_v
 
-    out = zip_map(upd, params, grads, state["v"])
+    out = zip_map(upd, params, grads, state["v"], sliced)
     new_p, new_v = unzip(out, params, 2)
     return new_p, {"v": new_v}
 
@@ -178,13 +211,15 @@ def opt_init(cfg: OptimizerConfig, params: Any) -> Dict:
 
 def opt_update(
     cfg: OptimizerConfig, grads: Any, state: Dict, params: Any, step: torch.Tensor,
+    shards: Optional[Shards] = None,
 ) -> Tuple[Any, Dict, Dict]:
-    """Returns (new_params, new_state, stats)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    """Returns (new_params, new_state, stats).  ``shards``: the leaves
+    sliced over a model group (None: every leaf whole)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shards)
     if cfg.name == "adamw":
         new_p, new_s = adamw_update(cfg, grads, state, params, step)
     elif cfg.name == "adafactor":
-        new_p, new_s = adafactor_update(cfg, grads, state, params, step)
+        new_p, new_s = adafactor_update(cfg, grads, state, params, step, shards)
     elif cfg.name == "sgd":
         lr = lr_schedule(cfg, step)
         new_p = zip_map(

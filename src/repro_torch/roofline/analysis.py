@@ -11,9 +11,11 @@ over the H100 constants of ``hw``.  FLOPs and bytes come from
 ``op_cost.trace_cost`` (global: the counter sees the whole step).  The
 collectives are the counter's records of the ``torch.distributed`` calls
 one rank issued (every rank issues the same): each record's wire bytes by
-``collective_wire_bytes``' ring model, summed by kind, times the chips for
-the global bytes, as ``repro`` multiplies its per-device HLO bytes.  A step
-on one card issues none, and its collective terms are 0.
+``collective_wire_bytes``' ring model over its own group's size (the data
+group's all_reduces, the model group's all-gathers and all_reduces),
+summed by kind, times the chips for the global bytes, as ``repro``
+multiplies its per-device HLO bytes.  A step on one card issues none, and
+its collective terms are 0.
 """
 
 from __future__ import annotations

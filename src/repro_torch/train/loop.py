@@ -5,11 +5,14 @@ in the pipeline, async checkpointing, and per-step DySkew MoE telemetry.
 Each history entry also carries ``data_wait_s``, the seconds the loop spent
 blocked on the pipeline for that step's batch.
 
-On a mesh of data-parallel ranks (``launch/mesh.py::init_ranks``) every rank
-runs the same seeded ``DataPipeline`` and takes its rows ``[r·B/R,
-(r+1)·B/R)`` of each global batch, one token group a rank; the metrics are
-the global ones on every rank, and only rank 0 calls ``on_metrics`` and
-writes the checkpoint's replicated state.
+On a (data D, model M) mesh (``launch/mesh.py::init_ranks``) every rank
+runs the same seeded ``DataPipeline`` and takes the rows ``[d·B/D,
+(d+1)·B/D)`` of each global batch by its DATA index d, one token group a
+data rank, so the M ranks of a model group hold the same tokens and each
+its slice of the experts (``num_ep_shards`` = M); the metrics are the
+global ones on every rank, and only rank 0 calls ``on_metrics`` and writes
+the checkpoint's replicated state (the expert leaves gathered over its
+model group).
 """
 
 from __future__ import annotations
@@ -27,8 +30,9 @@ from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.layers.moe import SpmdCtx
 from repro_torch.models.model_api import build
+from repro_torch.models.param import expert_axes
 from repro_torch.optim.optimizers import OptimizerConfig
-from repro_torch.train.step import StepConfig, make_train_step, train_state_init
+from repro_torch.train.step import StepConfig, make_train_step, train_state_init, train_state_specs
 
 
 @dataclasses.dataclass
@@ -51,12 +55,12 @@ def train(
 ) -> Dict:
     dev = resolve_device(device)
     model = build(cfg)
-    world = mesh.shape["data"]
-    if data_cfg.global_batch % world:
-        raise ValueError(f"a global batch of {data_cfg.global_batch} rows does not split over {world} ranks")
-    rows = data_cfg.global_batch // world
-    lo = mesh.rank * rows
-    ctx = SpmdCtx(num_groups=world, group=mesh.group)
+    data, shards = mesh.shape["data"], mesh.shape["model"]
+    if data_cfg.global_batch % data:
+        raise ValueError(f"a global batch of {data_cfg.global_batch} rows does not split over {data} data ranks")
+    rows = data_cfg.global_batch // data
+    lo = mesh.data_rank * rows
+    ctx = SpmdCtx(num_groups=data, num_ep_shards=shards, group=mesh.group, ep_group=mesh.ep_group)
     step_fn = make_train_step(model, opt_cfg, StepConfig(), ctx)
     # Drawn on the host: the same weights on every device.
     gen = torch.Generator().manual_seed(loop_cfg.seed)
@@ -65,7 +69,8 @@ def train(
     ckpt = None
     start_step = 0
     if loop_cfg.checkpoint_dir:
-        ckpt = CheckpointManager(loop_cfg.checkpoint_dir, group=mesh.group)
+        ckpt = CheckpointManager(loop_cfg.checkpoint_dir, group=mesh.group, ep_group=mesh.ep_group,
+                                 experts=expert_axes(train_state_specs(model, opt_cfg)))
         if ckpt.latest_step() is not None:
             state = ckpt.restore(state)
             start_step = int(state["step"])
@@ -77,7 +82,7 @@ def train(
         for step in range(start_step, loop_cfg.steps):
             t_wait = time.perf_counter()
             batch = next(pipe)
-            if world > 1:
+            if data > 1:
                 batch = {k: v[lo:lo + rows] for k, v in batch.items()}
             data_wait_s = time.perf_counter() - t_wait
             state, metrics = step_fn(state, batch)

@@ -8,7 +8,12 @@ microbatch).  The steps are plain closures: there is no compile step, and
 each call runs eagerly on the device its tensors live on.
 
 With a data-parallel group (``SpmdCtx.group``) each rank's batch is its
-rows of the global batch.  Each rank's loss has the global value and its
+rows of the global batch.  With a model group (``SpmdCtx.ep_group``, the
+ranks holding the same rows) each rank holds its slice of every expert
+leaf: the gradients of all leaves, expert and replicated, are summed over
+the data group only (the model group's ranks already hold equal gradients
+of the replicated leaves), and the optimizer sums what reads a whole leaf
+over the model group (``optimizers.Shards``).  Each rank's loss has the global value and its
 share of the global gradient (global denominators, in every microbatch), so
 the SUM of the ranks' gradients is the gradient of ``repro``'s loss on the
 global batch: the plain reduction sums each leaf in float32 (one
@@ -29,9 +34,9 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.ordered_sums import div
 from repro_torch.models.layers.moe import KERNEL_OPS, DispatchOps, SpmdCtx
 from repro_torch.models.model_api import Model
-from repro_torch.models.param import tree_leaves, tree_map
+from repro_torch.models.param import expert_axis, tree_leaves, tree_map
 from repro_torch.optim.grad_compress import allreduce_compressed, residual_init
-from repro_torch.optim.optimizers import OptimizerConfig, opt_init, opt_update, zip_map
+from repro_torch.optim.optimizers import OptimizerConfig, Shards, opt_init, opt_update, zip_map
 from repro_torch.optim.specs import opt_state_specs
 
 
@@ -48,8 +53,10 @@ def train_state_init(
     ctx: SpmdCtx = SpmdCtx(), device: DeviceLike = None,
 ) -> Dict:
     """Params drawn from ``generator`` (on its own device) and put on
-    ``device``; zero optimizer state, step 0 and fresh link states."""
-    params = model.init(generator, device=device)
+    ``device``, each expert leaf this rank's shard of it under a model
+    group (``ctx.ep_group``); zero optimizer state, step 0 and fresh link
+    states."""
+    params = model.init(generator, device=device, ctx=ctx)
     dev = resolve_device(device)
     state = {
         "params": params,
@@ -119,6 +126,9 @@ def make_train_step(
             "ROADMAP.md queue A, 'allreduce_compressed'"
         )
     world = distributed.world_size(group)
+    shards = None
+    if ctx.ep_group is not None:
+        shards = Shards(tree_map(lambda p: expert_axis(p) is not None, model.specs()), ctx.ep_group)
 
     grad_fn = make_grad_fn(model, ctx)
 
@@ -169,7 +179,7 @@ def make_train_step(
 
         with torch.no_grad():
             new_params, new_opt, stats = opt_update(
-                opt_cfg, grads, state["opt"], params, state["step"]
+                opt_cfg, grads, state["opt"], params, state["step"], shards
             )
         new_state = dict(state, params=new_params, opt=new_opt, step=state["step"] + 1)
         if new_dyskew is not None:
