@@ -64,14 +64,23 @@ data-parallel step's ``t_collective``.
 
 ``expert_parallel`` checks the model axis: granite at full width and depth
 served (8 × 1024 prefill, 32 greedy decode steps, both combines) on a
-one-rank NCCL mesh whose model group of one runs the all-gathers, the same
-bits as no group (its two train steps are ``ranks``' loop on that mesh);
-then four gloo ranks sharing the card as (data 1, model 4), each with 8 of
-granite's 32 experts, serving it at full width and depth and training it in
-float32 at the depth reckoned from the free card, held to one process at
-``num_ep_shards`` 4, link states the same bits on every rank; and the model
-group's collectives of a prefill (each combine) and a train step, as the op
-counter records them, against what they issue, with ``t_collective``.
+one-rank NCCL mesh whose model group of one runs the model group's
+collectives, the same bits as no group with either combine (its two train
+steps are ``ranks``' loop on that mesh); then four gloo ranks sharing the
+card as (data 1, model 4) under the reference's layout (``default_rules``:
+a quarter of the experts, heads, ffn width, vocabulary and Mamba heads a
+rank), serving granite (both combines, H9 twice: the same bits),
+starcoder2-3b and mamba2-1.3b at full width and depth (the last two 8
+decode steps), each held to one process: every layer, fed one process's
+output of the layer before, within four bf16 roundings (MoE rows whose
+router picks other experts only at near ties), the same bits on every rank,
+the full-depth logits against one process's a reading (a random model's
+rounding cascades through the layers); and training granite in float32 at
+the depth reckoned from the free card (loss and ``grad_norm`` within 1e-3);
+then the experts-only layout at 2 layers, served with the
+default combine bit for bit and trained; and the model
+group's collectives of each prefill and train step, as the op counter
+records them, against what they issue, with ``t_collective``.
 
 Last, ``roofline`` runs the dry-run (``launch/dryrun.py``: every cell of
 the six configs served or trained, counted on ``meta`` tensors) and counts
@@ -109,8 +118,9 @@ Standard output is one JSON object per line:
                                  four gloo ranks against one process, launches, seconds
     {"phase": "expert_parallel_depth"}  the model axis's train depth, reckoned
     {"phase": "expert_parallel"} one NCCL rank's model group against no group; four gloo
-                                 ranks at (data 1, model 4) served and trained against one
-                                 process; the model group's collectives; launches, seconds
+                                 ranks at (data 1, model 4), the reference's layout and the
+                                 experts alone, served and trained against one process;
+                                 the model group's collectives; launches, seconds
     {"phase": "roofline_cell"}   the dry-run of each cell of the six configs served or
                                  trained (launch/dryrun.py, on meta): status, counts,
                                  roofline terms, peak GB, fits_hbm
@@ -119,6 +129,7 @@ Standard output is one JSON object per line:
                                  and on meta (equal), its records equal to its
                                  launches, with mfu, the counted terms and peaks
     {"phase": "roofline", ...}   how many cells ran and the phase's seconds
+    {"phase": "script", ...}     the whole script's seconds
     {"kernels": [...]}           per kernel: time, bound, launches, error
     <name>, <power limit>        as nvidia-smi prints them
     {"ok": true, "device": {...}}
@@ -774,6 +785,11 @@ def phase_kernel_checks(torch):
     # ---- ssd_state_scan: the served shape, timed, then awkward shapes.
     states, decay = served_scan_inputs(torch, gen)
     cases.append(ssd_case(torch, "prefill_f32", states, decay, timed=True))
+    # A rank of the expert_parallel phase scans its 16 of mamba2's 64 heads
+    # (8 prompts x 16 heads).
+    n = states.shape[1] // EP_MODEL
+    cases.append(ssd_case(torch, f"prefill_f32_shard{EP_MODEL}", states[:, :n].contiguous(),
+                          decay[:, :n].contiguous(), timed=True))
     cases.append(ssd_case(torch, "prefill_bf16_states", states.bfloat16(), decay, False))
     # Its backward at the training shape, which is the same (8 x 1024 tokens
     # of mamba2-1.3b in chunks of 128): timed, and with bfloat16 states.
@@ -1064,9 +1080,9 @@ def expected_launches(cfg):
 def serve_pass(torch, served, forced=None):
     """One prefill and DECODE_STEPS decode steps, greedy or fed ``forced``
     tokens: (state, logits per step, tokens fed, prefill s, decode s)."""
-    model, _, params, inputs, prefill, decode = served
+    model, ctx, params, inputs, prefill, decode = served
     B, prompt = inputs["tokens"].shape
-    state = model.decode_state_init(B, prompt + DECODE_STEPS)
+    state = model.decode_state_init(B, prompt + DECODE_STEPS, ctx=ctx)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, state = prefill(params, state, inputs)
@@ -1259,20 +1275,19 @@ INPUT_AXES = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1, "w_dow
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
-def at_input_fan_in(params, experts=None) -> None:
+def at_input_fan_in(params, specs=None) -> None:
     """Rescales, in place, every stacked block matrix of ``params`` from the
-    layer count's fan-in to that of its inputs (INPUT_AXES).  ``experts``:
-    the whole experts axis, for a rank that holds a slice of it (the scale
-    is the whole leaf's, as one process applies it)."""
+    layer count's fan-in to that of its inputs (INPUT_AXES).  ``specs``:
+    the model's spec tree, for a rank that holds slices of its leaves (the
+    scale is the whole leaf's, as one process applies it)."""
     import math
 
     for key, leaf in params.items():
+        whole = None if specs is None else specs[key]
         if isinstance(leaf, dict):
-            at_input_fan_in(leaf, experts)
+            at_input_fan_in(leaf, whole)
         elif key in INPUT_AXES:
-            shape = list(leaf.shape)
-            if experts is not None and key in EXPERT_LEAVES:
-                shape[1] = experts
+            shape = list(leaf.shape if whole is None else whole.shape)
             fan_in = math.prod(shape[1:1 + INPUT_AXES[key]])
             leaf.mul_(math.sqrt(shape[0] / fan_in))
 
@@ -2791,8 +2806,9 @@ def step_collectives(cfg, groups, params, tokens, data=1, model=None):
     the all-gather of the expert outputs; the loss's sum and count; each
     layer's again in the recompute, with a model group followed by
     ``to_shard``'s all_reduce of the tokens' gradient; one float32 sum a
-    parameter leaf; with a model group the global norm's all_reduce of the
-    expert leaves' sums of squares."""
+    parameter leaf; with a model group of more than one rank the global
+    norm's all_reduce of the expert leaves' sums of squares (the
+    experts-only layout: ``param.expert_rules``)."""
     from repro_torch.checkpoint.manager import flatten_with_paths
     from repro_torch.models.layers.moe import capacities
 
@@ -2807,7 +2823,7 @@ def step_collectives(cfg, groups, params, tokens, data=1, model=None):
     n = n_moe_layers(cfg)
     leaves = flatten_with_paths(params)
     out = fwd * n + [("all-reduce", data, 8)] + bwd * n + [("all-reduce", data, 4 * p.numel()) for _, p in leaves]
-    if model is not None:
+    if model is not None and model > 1:
         out.append(("all-reduce", model, 4 * sum(1 for k, _ in leaves if k.rsplit("/", 1)[-1] in EXPERT_LEAVES)))
     return out
 
@@ -3253,69 +3269,111 @@ def phase_ranks(torch, card="cuda"):
 
 
 # --------------------------------------------------------------------- #
-# Phase 13b: the expert-parallel model axis
+# Phase 13b: the model axis
 # --------------------------------------------------------------------- #
 
 #: (b): the ranks of a (data 1, model EP_MODEL) mesh, sharing the one card
-#: over gloo, each with E / EP_MODEL of granite's 32 experts.
+#: over gloo.  Under the reference's layout (``param.default_rules``) a rank
+#: holds a quarter of granite's experts, attention heads and vocabulary, of
+#: starcoder2-3b's query heads (its 2 kv heads stay whole: a rank uses the
+#: one its query heads read) and ffn, of mamba2-1.3b's heads.
 EP_MODEL = 4
 #: Seconds each wait on a rank of (b) may take: a process start, the kernel
-#: build, the served model's two combines, the train steps, all through
-#: gloo's host staging.
-EP_TIMEOUT_S = 600
+#: build, three served models, two trained ones, all through gloo's host
+#: staging.
+EP_TIMEOUT_S = 900
 #: (b)'s train depth is reckoned from these before the run.  A rank's
 #: peak is the larger of two: at the update a float32 parameter costs 32 B
 #: (itself, its gradient, the clipped gradient, AdamW's two moments, and
 #: the new parameter and moments while the old are alive); in the
 #: backward 14 B a parameter beside EP_ACTIVATION_BYTES, the activations
-#: of all 8 × 1024 tokens (every rank of a model group holds its rows: the
-#: float32 logits and their gradient are 1.6 GB each).  The backward's two
-#: constants fit a rank's peaks at 7 and 12 layers, 11,013,041,664 and
-#: 12,125,836,800 B on an NVIDIA H100 80GB HBM3 (PERF.md §6).  The depth
-#: is the most layers whose EP_MODEL ranks fit in EP_CARD_SHARE of the
-#: free card (the rest: the allocator's slack, five CUDA contexts, this
-#: process), and at least EP_MIN_LAYERS.
+#: of all 8 × 1024 tokens (every rank of a model group holds its rows).
+#: The backward's two constants fit a rank's peaks at 7 and 12 layers of
+#: the experts-only layout, 11,013,041,664 and 12,125,836,800 B on an NVIDIA H100
+#: 80GB HBM3 (PERF.md §6).  The depth is the most layers whose EP_MODEL
+#: ranks fit in EP_CARD_SHARE of the free card (the rest: the allocator's
+#: slack, five CUDA contexts, this process), and at least EP_MIN_LAYERS.
 EP_UPDATE_BYTES_PER_PARAM = 32
 EP_BACKWARD_BYTES_PER_PARAM = 14
 EP_ACTIVATION_BYTES = 8 * 10 ** 9
 EP_CARD_SHARE = 0.85
 EP_MIN_LAYERS = 6
-#: The served comparison (bf16, all 24 layers), ranks against one process
-#: at num_ep_shards EP_MODEL fed the same tokens: a rank's ``bmm`` over 8
-#: experts may round otherwise than one over 32 (cuBLAS picks its kernel by
-#: the batch too), and H9 adds four bf16 partial sums where one process
-#: adds into one, so the residual stream may move by bf16's rounding
-#: (2^-8) in a layer and carry it through the later ones: logits within
-#: ``EP_SERVE_ATOL · max|logits|`` + ``EP_SERVE_RTOL · |logit|``.  A rank's
-#: greedy token may differ from one process's only where the reference's
-#: two best logits are within twice that band.  H9 adds with atomics on
-#: the card (``index_add_``), so one process's two H9 passes differ
-#: already, and a flipped top-8 pick in one layer moves a token's whole
-#: MoE output: a rank may differ from one process by at most EP_H9_SPREAD
-#: times what one process's second pass differs from its first, in the
-#: largest logit gap and in greedy tokens.
+#: The experts-only layout (``param.expert_rules``), kept as an
+#: earlier path at this depth, to keep the script's time: served with the
+#: default combine (held to one process bit for bit) and trained.
+EP_EXPERT_LAYERS = 2
+#: The served models of (b) besides granite, at full width and depth: the
+#: ``mlp`` rule with the kv-head fallback, and ``ssm_heads``; their decode
+#: steps (fewer than granite's 32, to keep the script's time: a step is
+#: about a hundred small gloo collectives on the ranks).
+EP_DENSE_ARCHS = ("starcoder2-3b", SSM_ARCH)
+EP_DENSE_DECODE_STEPS = 8
+#: The served comparisons (bf16), ranks against one process fed the same
+#: tokens.  A row-sharded product adds four bf16 partial sums where one
+#: process adds one, and cuBLAS picks its kernel by the shapes, so a layer's
+#: output may move by bf16's rounding; on the random granite a flipped
+#: top-8 pick moves a token's whole MoE output, and both cascade through
+#: the later layers (granite's full-depth logits lay 47 times the
+#: EP_SERVE_* band off one process's, with 35 of 264 greedy flips away from
+#: a near tie, and mamba2's 3.6 times, on an NVIDIA H100 80GB HBM3:
+#: PERF.md §6).  So each layer is held with no cascade: fed one
+#: process's output of the layer before (``layer_outputs``, on LAYER_PROMPTS
+#: of the prompts, the MoE layers through H9), its output within
+#: LAYER_TOL of |x| and of the largest |x| (four bf16 roundings, 2^-6:
+#: a row-sharded product adds four partial sums, each rounded once; at two,
+#: 2^-7, granite's layers read 1.17 of the band: PERF.md §6), a MoE
+#: layer's rows where the rank's router picks other
+#: experts than one process's excepted, each such row a near tie of one
+#: process's router logits (its k-th and (k+1)-th within twice that band);
+#: the embedding's output EQUAL.  The full-depth logits against one
+#: process's (``EP_SERVE_ATOL · max|logits|`` + ``EP_SERVE_RTOL · |logit|``,
+#: greedy flips at near ties) are a reading.  Between the ranks, and
+#: between two H9 prefills, EQUAL; under the experts-only layout the default combine
+#: bit for bit.
+LAYER_TOL = 2.0 ** -6
+LAYER_PROMPTS = 2
+#: The float32 train steps under the reference's layout, a rank against one
+#: process: losses and ``grad_norm`` within RANKS_LOSS_RTOL, link states
+#: EQUAL, and each parameter within 2 · lr (one AdamW step of each sign).
+#: Every gradient there comes from products of other shapes than one
+#: process's (a rank's heads, ffn columns and vocabulary rows), whose
+#: float32 sums cuBLAS orders otherwise, and a near-tied pick that flips in
+#: one of the 24 layers moves a token's path through the backward:
+#: ``wk``'s AdamW first moment lay 1.26 % of its largest element off one
+#: process's, and the experts-only layout's rule for the parameters (within
+#: RANKS_PARAM_TOL of the largest |p| but for 1 % of a leaf) read 20.7 % of
+#: ``wk`` beyond it, all within 1.29 · lr (PERF.md §6).  So the parameters'
+#: share beyond RANKS_PARAM_TOL is a reading here; the experts-only layout
+#: keeps that rule.
 EP_SERVE_RTOL = 2e-2
 EP_SERVE_ATOL = 2e-2
-EP_H9_SPREAD = 2
 
 
-def ep_train_layers(torch, free):
-    """(b)'s train depth, reckoned from the parameters a rank holds at each
-    depth (see EP_UPDATE_BYTES_PER_PARAM); (layers, the reckoning)."""
-    import dataclasses
+def ep_rank_params(cfg, rules, model=EP_MODEL):
+    """The parameters a rank of a model axis of ``model`` holds under
+    ``rules``, reckoned from the specs."""
     import math
 
     from repro_torch.checkpoint.manager import flatten_with_paths
     from repro_torch.models.model_api import build
-    from repro_torch.models.param import expert_axes
+    from repro_torch.models.param import local_shape
+
+    return sum(math.prod(local_shape(p, model, rules)) for _, p in flatten_with_paths(build(cfg).specs()))
+
+
+def ep_train_layers(torch, free):
+    """(b)'s train depth under the reference's layout, reckoned from the
+    parameters a rank holds at each depth (see EP_UPDATE_BYTES_PER_PARAM);
+    (layers, the reckoning)."""
+    import dataclasses
+
+    from repro_torch.models.param import default_rules
 
     cfg = ranks_config()
     budget = EP_CARD_SHARE * free / EP_MODEL
     table = {}
     for layers in range(1, cfg.num_layers + 1):
-        specs = build(dataclasses.replace(cfg, num_layers=layers)).specs()
-        axes = expert_axes(specs)
-        held = sum(math.prod(p.shape) // (EP_MODEL if k in axes else 1) for k, p in flatten_with_paths(specs))
+        held = ep_rank_params(dataclasses.replace(cfg, num_layers=layers), default_rules())
         table[layers] = {"params_a_rank": held, "bytes_a_rank": max(
             EP_UPDATE_BYTES_PER_PARAM * held, EP_BACKWARD_BYTES_PER_PARAM * held + EP_ACTIVATION_BYTES)}
     fits = [n for n, t in table.items() if t["bytes_a_rank"] <= budget]
@@ -3327,17 +3385,17 @@ def ep_train_layers(torch, free):
                     "activation_bytes": EP_ACTIVATION_BYTES}
 
 
-def ep_served_passes(torch, served, forced=None, combines=(False, True)):
+def ep_served_passes(torch, served, forced=None, combines=(False, True), steps=DECODE_STEPS):
     """Per combine (False: default, True: H9) a prefill under the op
-    counter, then one serve pass, greedy or fed ``forced[combine]``, its
-    launches counted: {combine: (logits of the real vocabulary, tokens,
-    prefill s, decode s, launches, the counted prefill's collective
-    records)}."""
+    counter, then one serve pass of ``steps`` decode steps, greedy or fed
+    ``forced[combine]``, its launches counted: {combine: (logits of the
+    real vocabulary, tokens, prefill s, decode s, launches, the counted
+    prefill's collective records)}."""
     from repro_torch import kernels
     from repro_torch.models.perf_flags import PerfFlags, use_flags
     from repro_torch.roofline.op_cost import OpCounter
 
-    model, _, params, inputs, prefill, decode = served
+    model, ctx, params, inputs, prefill, decode = served
     B, prompt = inputs["tokens"].shape
     out = {}
     for scatter in combines:
@@ -3345,8 +3403,8 @@ def ep_served_passes(torch, served, forced=None, combines=(False, True)):
             # The counted prefill also pays the one-off costs (gloo's
             # first buffers, library handles) before the timed pass.
             with OpCounter() as counter:
-                prefill(params, model.decode_state_init(B, prompt), inputs)
-            state = model.decode_state_init(B, prompt + DECODE_STEPS)
+                prefill(params, model.decode_state_init(B, prompt, ctx=ctx), inputs)
+            state = model.decode_state_init(B, prompt + steps, ctx=ctx)
             kernels.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3355,7 +3413,7 @@ def ep_served_passes(torch, served, forced=None, combines=(False, True)):
             prefill_s = time.perf_counter() - t0
             all_logits, toks = [logits], []
             t0 = time.perf_counter()
-            for i in range(DECODE_STEPS):
+            for i in range(steps):
                 tok = torch.argmax(logits, dim=-1).to(torch.int32) if forced is None else forced[scatter][i].cuda()
                 toks.append(tok)
                 logits, state = decode(params, state, tok)
@@ -3369,10 +3427,119 @@ def ep_served_passes(torch, served, forced=None, combines=(False, True)):
     return out
 
 
-def ep_train(torch, card, layers, ctx, batches, experts):
+def layer_outputs(torch, served, teacher=None):
+    """Every layer of ``served`` on its prompts, as ``transformer.forward``
+    runs a prefill under the served context: the embedding's output, each
+    layer's output (the residual stream after its mixer and ffn) and a MoE
+    layer's router logits (T, E), on the host.  With ``teacher`` (one
+    process's ``layer_outputs``) each layer takes the teacher's output of
+    the layer before as its input, so that a layer is compared with no
+    cascade from the ones before it.  A MoE layer runs at a capacity that
+    drops nothing (``capacity_factor`` E/k: at the served one a near-tied
+    pick that flips moves which other tokens an expert keeps) and through
+    H9 (an all_reduce of the tokens' width, where the default combine
+    all-gathers the whole buffer).  The first LAYER_PROMPTS prompts."""
+    import dataclasses
+
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import basic
+    from repro_torch.models.layers.attention import attention_apply, mlp_apply
+    from repro_torch.models.layers.mamba2 import mamba_apply
+    from repro_torch.models.layers.moe import moe_apply, moe_state_init
+    from repro_torch.models.perf_flags import PerfFlags, use_flags
+
+    model, ctx, params, inputs, _, _ = served
+    cfg = model.cfg
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts
+                                                               / cfg.moe.top_k))
+    tokens = inputs["tokens"][:LAYER_PROMPTS]
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+    x = basic.embed_apply(params["embed"], tokens, transformer.model_dtype(cfg),
+                          transformer.vocab_group(params, cfg, ctx))
+    out = {"embed": x.cpu(), "layers": [], "router": []}
+    with use_flags(PerfFlags(moe_scatter_combine=True)):
+        for b in range(transformer.num_blocks(cfg)):
+            bp = transformer._take_block(params["blocks"], b)
+            for j in range(transformer.block_period(cfg)):
+                i = len(out["layers"])
+                if teacher is not None:
+                    x = (teacher["embed"] if i == 0 else teacher["layers"][i - 1]).to(tokens.device)
+                lp = bp[f"l{j}"]
+                h = basic.norm_apply(lp["norm1"], x, cfg.norm)
+                if "attn" in lp:
+                    mix, _ = attention_apply(lp["attn"], h, cfg=cfg, positions=positions, group=ctx.ep_group)
+                else:
+                    mix, _ = mamba_apply(lp["mamba"], h, cfg=cfg, group=ctx.ep_group)
+                x = x + mix
+                if "moe" in lp:
+                    h = basic.norm_apply(lp["norm2"], x, cfg.norm)
+                    out["router"].append((h.reshape(-1, cfg.d_model) @ lp["moe"]["router"].to(h.dtype)).cpu())
+                    x = x + moe_apply(lp["moe"], h, cfg=cfg, state=moe_state_init(cfg, ctx, x.device), ctx=ctx)[0]
+                elif "ffn" in lp:
+                    x = x + mlp_apply(lp["ffn"], basic.norm_apply(lp["norm2"], x, cfg.norm), cfg, ctx.ep_group)
+                out["layers"].append(x.cpu())
+    return out
+
+
+def layers_check(torch, got, want, top_k=None):
+    """``got`` (a rank's ``layer_outputs`` taught by ``want``, one
+    process's) against ``want``: the embedding's output EQUAL; each layer's
+    output within LAYER_TOL of |x| and of the largest |x|, a MoE
+    layer's rows where the rank's router picks other experts than one
+    process's (the gating kernel on each side's router logits) excepted,
+    each such row a near tie of one process's logits (its k-th and
+    (k+1)-th within twice that band).  Returns the readings."""
+    from repro_torch.kernels.topk_gating import ops as gating_ops
+
+    def ratio(a, b, rows=None):
+        a, b = a.float().reshape(-1, a.shape[-1]), b.float().reshape(-1, b.shape[-1])
+        if rows is not None:
+            a, b = a[rows], b[rows]
+        if not a.numel():
+            return 0.0
+        band = LAYER_TOL * (b.abs().max() + b.abs())
+        return float(((a - b).abs() / band).max())
+
+    out = {"embed_equal": bool(torch.equal(got["embed"], want["embed"])), "layers": len(got["layers"]),
+           "band_ratio": [], "rows_other_picks": 0, "other_picks_outside_near_ties": 0}
+    for i, (a, b) in enumerate(zip(got["layers"], want["layers"])):
+        rows = None
+        if top_k is not None:
+            mine = gating_ops.gating(got["router"][i].cuda(), top_k)[1].sort(dim=-1).values
+            ref = want["router"][i].float()
+            theirs = gating_ops.gating(want["router"][i].cuda(), top_k)[1].sort(dim=-1).values
+            rows = (mine == theirs).all(dim=-1).cpu()
+            top = ref.topk(top_k + 1, dim=-1).values
+            tie_band = 2 * LAYER_TOL * (ref.abs().max() + top[:, top_k - 1].abs())
+            out["rows_other_picks"] += int((~rows).sum())
+            out["other_picks_outside_near_ties"] += int((~rows & (top[:, top_k - 1] - top[:, top_k] > tie_band)).sum())
+        out["band_ratio"].append(ratio(a, b, rows))
+    out["max_band_ratio"] = max(out["band_ratio"])
+    return out
+
+
+def served_against(torch, logits, toks, ref):
+    """A rank's served logits against one process's ``ref`` (the band of
+    EP_SERVE_*, greedy flips only at near ties), bit-equality and a
+    checksum."""
+    scale = float(ref.float().abs().max())
+    gap = (logits.float() - ref.float()).abs()
+    band = EP_SERVE_ATOL * scale + EP_SERVE_RTOL * ref.float().abs()
+    top2 = ref.float().topk(2, dim=-1).values
+    near_tie = (top2[..., 0] - top2[..., 1]) <= 2 * (EP_SERVE_ATOL * scale + EP_SERVE_RTOL * top2[..., 0].abs())
+    flips = logits.argmax(dim=-1) != ref.argmax(dim=-1)
+    return {"band_ratio": float((gap / band).max()), "max_abs_gap": float(gap.max()), "scale": scale,
+            "bitwise_equal": bool(torch.equal(logits, ref)), "flips": int(flips.sum()),
+            "flips_outside_near_ties": int((flips & ~near_tie).sum()), "positions": int(flips.numel()),
+            "checksum": float(logits.double().sum()), "tokens_checksum": int(toks.long().sum())}
+
+
+def ep_train(torch, card, layers, ctx, batches, specs=None):
     """RANKS_STEPS AdamW steps of granite cut to ``layers`` in float32 at
     ``ctx`` on the whole global batch, the first under the op counter:
-    (state, losses, grad norms, ms, records, launches)."""
+    (state, losses, grad norms, ms, records, launches).  ``specs``: the
+    whole leaves' specs, for a rank's slices (``at_input_fan_in``)."""
     from repro_torch import kernels
     from repro_torch.models.model_api import build
     from repro_torch.optim.optimizers import OptimizerConfig
@@ -3383,7 +3550,7 @@ def ep_train(torch, card, layers, ctx, batches, experts):
     model = build(cfg)
     opt_cfg = OptimizerConfig(name=cfg.optimizer, warmup_steps=1, total_steps=TRAIN_STEPS)
     state = train_state_init(model, opt_cfg, torch.Generator(device="cuda").manual_seed(0), ctx, card)
-    at_input_fan_in(state["params"], experts)
+    at_input_fan_in(state["params"], specs)
     step = make_train_step(model, opt_cfg, ctx=ctx)
     run = {"loss": [], "grad_norm": [], "ms": []}
     kernels.reset_launch_counts()
@@ -3406,19 +3573,62 @@ def ep_train(torch, card, layers, ctx, batches, experts):
     return state, run
 
 
+def ep_rank_train(torch, card, layers, ctx, where, name, mesh):
+    """A rank's train steps at ``layers`` under ``ctx``, held to the one
+    process's parameters (``where``/``name``): the run's readings."""
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.models.model_api import build
+    from repro_torch.models.param import expert_rules, shard_axes, slice_shards
+
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    ref_params = torch.load(os.path.join(where, name), mmap=True)
+    specs = build(ranks_config(layers)).specs()
+    batches = [{k: v.to(card) for k, v in b.items()} for b in ranks_batches(torch, ranks_config(layers))]
+    torch.cuda.reset_peak_memory_stats(card)
+    state, run = ep_train(torch, card, layers, ctx, batches, specs)
+    run["peak_memory_bytes"] = torch.cuda.max_memory_allocated(card)
+    run["dyskew"] = {k: v.cpu().numpy() for k, v in flatten_with_paths(state["dyskew"])}
+    axes = shard_axes(specs, EP_MODEL, ctx.rules)
+    want_p = slice_shards(ref_params, axes, mesh.model_rank, EP_MODEL)
+    gaps = {}
+    for key, p in flatten_with_paths(state["params"]):
+        diff = (p.cpu() - want_p[key]).abs()
+        scale = float(want_p[key].abs().max())
+        gaps[key] = {"max_rel": float(diff.max()) / scale, "max_over_lr": float(diff.max()) / run["lr"],
+                     "share_off": float((diff > RANKS_PARAM_TOL * scale).float().mean())}
+    run["against_one_process"] = gaps
+    run["sliced_leaves"] = {k: list(p.shape) for k, p in flatten_with_paths(state["params"]) if k in axes}
+    run["params_a_rank"] = sum(p.numel() for _, p in flatten_with_paths(state["params"]))
+    if ctx.rules == expert_rules():
+        run["issued"] = step_collectives(ranks_config(layers), 1, state["params"], TRAIN_BATCH * TRAIN_SEQ,
+                                         model=EP_MODEL)
+    else:
+        run["issued"] = tp_train_collectives(ranks_config(layers), (TRAIN_BATCH, TRAIN_SEQ), state["params"],
+                                             False)
+    del state, want_p, ref_params
+    torch.cuda.empty_cache()
+    return run
+
+
 def ep_rank(rank, world, init_method, where, layers):
-    """Rank ``rank`` of (b): granite served at full width and depth with
-    its slice of the experts, fed the one process's greedy tokens, both
-    combines; then trained at ``layers`` in float32.  Each rank holds its
-    logits and its parameters to the one process's (files in ``where``)."""
+    """Rank ``rank`` of (b).  Under the reference's layout: granite at full
+    width and depth served, fed the one process's greedy tokens, both
+    combines and H9's prefill a second time, every layer held beside
+    (``layer_outputs``); starcoder2-3b
+    and mamba2-1.3b served the same way; granite trained at ``layers`` in
+    float32.  Under the experts-only layout: granite served with the default combine
+    and trained, at EP_EXPERT_LAYERS.  Each held to the one process's files
+    in ``where``."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
 
-    from repro_torch.checkpoint.manager import flatten_with_paths
     from repro_torch.launch.mesh import init_ranks
     from repro_torch.models.layers.moe import SpmdCtx
-    from repro_torch.models.model_api import build
-    from repro_torch.models.param import expert_axes, slice_experts
+    from repro_torch.models.param import expert_rules
+    from repro_torch.models.perf_flags import PerfFlags, use_flags
 
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = EXPANDABLE
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3427,64 +3637,78 @@ def ep_rank(rank, world, init_method, where, layers):
     card = torch.device("cuda", 0)
     mesh = init_ranks(rank, world, device=card, init_method=init_method, backend="gloo", model=world)
     try:
-        ctx = SpmdCtx(num_groups=1, num_ep_shards=world, group=mesh.group, ep_group=mesh.ep_group)
+        full = SpmdCtx(num_groups=1, num_ep_shards=world, group=mesh.group, ep_group=mesh.ep_group)
+        experts = dataclasses.replace(full, rules=expert_rules())
+        out = {"serve": {}, "layers": {}, "dense": {}, "seconds": {}}
+        t0 = time.perf_counter()
         with torch.no_grad():
-            served = served_model(torch, MOE_ARCH, ctx=ctx)
-            E = served[0].cfg.moe.num_experts
-            at_input_fan_in(served[2], E)
+            served = served_model(torch, MOE_ARCH, ctx=full)
+            at_input_fan_in(served[2], served[0].specs())
+            out["held"] = {"experts": tuple(served[2]["blocks"]["l0"]["moe"]["w_gate"].shape),
+                           "wq": tuple(served[2]["blocks"]["l0"]["attn"]["wq"].shape),
+                           "table": tuple(served[2]["embed"]["table"].shape)}
             want = torch.load(os.path.join(where, "served.pt"))
+            out["layers"][MOE_ARCH] = layers_check(torch, layer_outputs(torch, served, want["layers"]),
+                                                   want["layers"], served[0].cfg.moe.top_k)
             runs = ep_served_passes(torch, served, forced=want["tokens"])
-        out = {"experts_held": tuple(served[2]["blocks"]["l0"]["moe"]["w_gate"].shape)}
-        out["serve"] = {}
-        for scatter, (logits, toks, prefill_s, decode_s, launches, records) in runs.items():
-            ref = want["logits"][scatter]
-            scale = float(ref.float().abs().max())
-            gap = (logits.float() - ref.float()).abs()
-            band = EP_SERVE_ATOL * scale + EP_SERVE_RTOL * ref.float().abs()
-            top2 = ref.float().topk(2, dim=-1).values
-            near_tie = (top2[..., 0] - top2[..., 1]) <= 2 * (EP_SERVE_ATOL * scale + EP_SERVE_RTOL * top2[..., 0].abs())
-            own = logits.argmax(dim=-1)
-            want_tok = ref.argmax(dim=-1)
-            flips = own != want_tok
-            out["serve"][scatter] = {
-                "band_ratio": float((gap / band).max()), "max_abs_gap": float(gap.max()), "scale": scale,
-                "bitwise_equal": bool(torch.equal(logits, ref)), "flips": int(flips.sum()),
-                "flips_outside_near_ties": int((flips & ~near_tie).sum()), "positions": int(flips.numel()),
-                "checksum": float(logits.double().sum()), "prefill_s": prefill_s, "decode_s": decode_s,
-                "launches": launches, "records": records}
-        del served, runs, want
-        torch._C._cuda_clearCublasWorkspaces()
-        torch.cuda.empty_cache()
-        ref_params = torch.load(os.path.join(where, "params.pt"), mmap=True)
-        batches = [{k: v.to(card) for k, v in b.items()} for b in ranks_batches(torch, ranks_config(layers))]
-        torch.cuda.reset_peak_memory_stats(card)
-        state, run = ep_train(torch, card, layers, ctx, batches, E)
-        run["peak_memory_bytes"] = torch.cuda.max_memory_allocated(card)
-        run["dyskew"] = {k: v.cpu().numpy() for k, v in flatten_with_paths(state["dyskew"])}
-        axes = expert_axes(build(ranks_config(layers)).specs())
-        want_p = slice_experts(ref_params, axes, mesh.model_rank, world)
-        gaps = {}
-        for key, p in flatten_with_paths(state["params"]):
-            ref = want_p[key]
-            diff = (p.cpu() - ref).abs()
-            scale = float(ref.abs().max())
-            gaps[key] = {"max_rel": float(diff.max()) / scale, "max_over_lr": float(diff.max()) / run["lr"],
-                         "share_off": float((diff > RANKS_PARAM_TOL * scale).float().mean())}
-        run["against_one_process"] = gaps
-        run["param_sums"] = {k: float(p.double().sum()) for k, p in flatten_with_paths(state["params"])}
-        run["expert_leaf_shapes"] = {k: tuple(p.shape) for k, p in flatten_with_paths(state["params"]) if k in axes}
-        run["issued"] = step_collectives(ranks_config(layers), 1, state["params"], TRAIN_BATCH * TRAIN_SEQ,
-                                         model=world)
-        out["train"] = run
+            for scatter, (logits, toks, prefill_s, decode_s, launches, records) in runs.items():
+                out["serve"][scatter] = dict(served_against(torch, logits, toks, want["logits"][scatter]),
+                                             prefill_s=prefill_s, decode_s=decode_s, launches=launches,
+                                             records=records)
+            # H9 a second time: the prefill's logits the same bits.
+            model, _, params, inputs, prefill, _ = served
+            with use_flags(PerfFlags(moe_scatter_combine=True)):
+                again, _ = prefill(params, model.decode_state_init(*inputs["tokens"].shape, ctx=full), inputs)
+            out["serve"][True]["second_prefill_equal"] = bool(torch.equal(
+                again[..., :model.cfg.vocab_size].cpu(), runs[True][0][:, :1]))
+            del served, runs, again, params
+            torch.cuda.empty_cache()
+            out["seconds"][MOE_ARCH] = time.perf_counter() - t0
+            for arch in EP_DENSE_ARCHS:
+                t0 = time.perf_counter()
+                served = served_model(torch, arch, ctx=full)
+                at_input_fan_in(served[2], served[0].specs())
+                want = torch.load(os.path.join(where, f"{arch}.pt"))
+                out["layers"][arch] = layers_check(torch, layer_outputs(torch, served, want["layers"]), want["layers"])
+                logits, toks, prefill_s, decode_s, launches, records = ep_served_passes(
+                    torch, served, forced={False: want["tokens"]}, combines=(False,), steps=EP_DENSE_DECODE_STEPS)[False]
+                ssm = served[0].decode_state_init(1, 1, ctx=full).get("ssm_l0")
+                out["dense"][arch] = dict(served_against(torch, logits, toks, want["logits"]), prefill_s=prefill_s,
+                                          decode_s=decode_s, launches=launches, records=records,
+                                          ssm_heads_hd_n=list(ssm["ssm"].shape[2:]) if ssm else None)
+                del served
+                torch.cuda.empty_cache()
+                out["seconds"][arch] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["train"] = ep_rank_train(torch, card, layers, full, where, "params.pt", mesh)
+        out["seconds"]["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            served = served_model(torch, MOE_ARCH, layers=EP_EXPERT_LAYERS, ctx=experts)
+            at_input_fan_in(served[2], served[0].specs())
+            want = torch.load(os.path.join(where, "served_experts.pt"))
+            logits, toks, prefill_s, decode_s, launches, records = ep_served_passes(
+                torch, served, forced=want["tokens"], combines=(False,))[False]
+            out["experts_only"] = {"serve": dict(served_against(torch, logits, toks, want["logits"][False]),
+                                                 prefill_s=prefill_s, decode_s=decode_s, launches=launches,
+                                                 records=records)}
+            del served
+            torch.cuda.empty_cache()
+        out["experts_only"]["train"] = ep_rank_train(torch, card, EP_EXPERT_LAYERS, experts, where,
+                                                     "params_experts.pt", mesh)
+        out["seconds"]["experts_only"] = time.perf_counter() - t0
         return out
     finally:
         dist.destroy_process_group()
 
 
 def ep_one_process(torch, card, where, layers):
-    """(b)'s yardstick in this process at num_ep_shards EP_MODEL, all
-    experts on the card: the served passes (greedy), their logits and
-    tokens saved for the ranks, then the train steps at ``layers``, their
+    """(b)'s yardstick in this process, every leaf whole: granite at
+    num_ep_shards EP_MODEL served (greedy, both combines, H9 a second time
+    fed its first pass's tokens: the same bits), starcoder2-3b and
+    mamba2-1.3b served greedy, each with its ``layer_outputs``, and granite at
+    EP_EXPERT_LAYERS served greedy with the default combine, saved for the
+    ranks; granite trained at ``layers`` and at EP_EXPERT_LAYERS, the
     parameters saved."""
     from repro_torch.checkpoint.manager import flatten_with_paths
     from repro_torch.models.layers.moe import SpmdCtx
@@ -3493,44 +3717,57 @@ def ep_one_process(torch, card, where, layers):
     served = served_model(torch, MOE_ARCH, ctx=ctx)
     at_input_fan_in(served[2])
     runs = ep_served_passes(torch, served)
-    # H9 adds with atomics: its own spread, a second pass fed the first's
-    # tokens.
     again = ep_served_passes(torch, served, forced={True: runs[True][1]}, combines=(True,))[True][0]
-    h9_self = {"max_abs_gap": float((again.float() - runs[True][0].float()).abs().max()),
-               "flips": int((again.argmax(dim=-1) != runs[True][0].argmax(dim=-1)).sum()),
-               "bitwise_equal": bool(torch.equal(again, runs[True][0]))}
-    torch.save({"logits": {c: r[0] for c, r in runs.items()}, "tokens": {c: r[1] for c, r in runs.items()}},
-               os.path.join(where, "served.pt"))
+    check(torch.equal(again, runs[True][0]), "expert_parallel (b) one process: two H9 passes differ")
+    torch.save({"logits": {c: r[0] for c, r in runs.items()}, "tokens": {c: r[1] for c, r in runs.items()},
+                "layers": layer_outputs(torch, served)}, os.path.join(where, "served.pt"))
     out = {"serve": {c: {"prefill_s": r[2], "decode_s": r[3], "records": r[5],
                          "distinct_tokens": len({tuple(t.flatten().tolist()) for t in r[1]})}
-                     for c, r in runs.items()}, "h9_self": h9_self}
+                     for c, r in runs.items()}, "h9_second_pass_equal": True, "dense": {}}
     for c, r in runs.items():
-        check(bool(torch.isfinite(r[0].float()).all()), f"expert_parallel (b) one process: logits not finite")
+        check(bool(torch.isfinite(r[0].float()).all()), "expert_parallel (b) one process: logits not finite")
         check(out["serve"][c]["distinct_tokens"] > 1, "expert_parallel (b) one process: decode repeats one token")
     del served, runs, again
     torch.cuda.empty_cache()
-    batches = [{k: v.to(card) for k, v in b.items()} for b in ranks_batches(torch, ranks_config(layers))]
-    torch.cuda.reset_peak_memory_stats()
-    state, run = ep_train(torch, card, layers, ctx, batches, None)
-    run["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    run["dyskew"] = {k: v.cpu().numpy() for k, v in flatten_with_paths(state["dyskew"])}
-    torch.save({k: v.cpu() for k, v in flatten_with_paths(state["params"])}, os.path.join(where, "params.pt"))
-    out["train"] = run
-    del state, batches
+    served = served_model(torch, MOE_ARCH, layers=EP_EXPERT_LAYERS, ctx=ctx)
+    at_input_fan_in(served[2])
+    run = ep_served_passes(torch, served, combines=(False,))[False]
+    torch.save({"logits": {False: run[0]}, "tokens": {False: run[1]}}, os.path.join(where, "served_experts.pt"))
+    del served, run
     torch.cuda.empty_cache()
+    for arch in EP_DENSE_ARCHS:
+        served = served_model(torch, arch, ctx=SpmdCtx())
+        at_input_fan_in(served[2])
+        logits, toks, prefill_s, decode_s, _, _ = ep_served_passes(torch, served, combines=(False,),
+                                                                   steps=EP_DENSE_DECODE_STEPS)[False]
+        check(bool(torch.isfinite(logits.float()).all()), f"expert_parallel (b) one process: {arch} logits")
+        torch.save({"logits": logits, "tokens": toks, "layers": layer_outputs(torch, served)},
+                   os.path.join(where, f"{arch}.pt"))
+        out["dense"][arch] = {"prefill_s": prefill_s, "decode_s": decode_s,
+                              "distinct_tokens": len({tuple(t.flatten().tolist()) for t in toks})}
+        del served
+        torch.cuda.empty_cache()
+    for depth, name in ((layers, "params.pt"), (EP_EXPERT_LAYERS, "params_experts.pt")):
+        batches = [{k: v.to(card) for k, v in b.items()} for b in ranks_batches(torch, ranks_config(depth))]
+        torch.cuda.reset_peak_memory_stats()
+        state, run = ep_train(torch, card, depth, ctx, batches)
+        run["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        run["dyskew"] = {k: v.cpu().numpy() for k, v in flatten_with_paths(state["dyskew"])}
+        torch.save({k: v.cpu() for k, v in flatten_with_paths(state["params"])}, os.path.join(where, name))
+        out["train" if name == "params.pt" else "train_experts"] = run
+        del state, batches
+        torch.cuda.empty_cache()
     return out
 
 
 def ep_one_rank(torch, card, nccl_train):
     """(a): granite at full width and depth served (8 × 1024 prefill, 32
-    greedy decode steps, the default combine) on a one-rank NCCL mesh
-    (data 1, model 1), through the model group's all-gathers, against no
-    group: the logits of every step, the tokens, and the link states of a
-    carried forward the same bits.  H9's ``index_add_`` adds with atomics
-    on the card, so its bits vary from run to run with or without a group:
-    (b) holds it in a band.  Its two train steps are ``ranks`` (b)'s
-    (``nccl_train``), whose loop now runs on the same mesh.  Returns (row,
-    the main path's counts)."""
+    greedy decode steps, each combine) on a one-rank NCCL mesh (data 1,
+    model 1), through the model group's collectives, against no group:
+    the logits of every step, the tokens, and the link states of a carried
+    forward the same bits, H9 too (its sum by token is deterministic).  Its
+    two train steps are ``ranks`` (b)'s (``nccl_train``), whose loop now
+    runs on the same mesh.  Returns (row, the main path's counts)."""
     import tempfile
 
     import torch.distributed as dist
@@ -3539,8 +3776,10 @@ def ep_one_rank(torch, card, nccl_train):
     from repro_torch.launch.mesh import init_ranks
     from repro_torch.models import transformer
     from repro_torch.models.layers.moe import SpmdCtx
+    from repro_torch.models.perf_flags import PerfFlags, use_flags
     from repro_torch.train.step import make_decode_step, make_prefill_step
 
+    counts = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
         mesh = init_ranks(0, 1, device=torch.device("cuda", 0), init_method="file://" + os.path.join(tmp, "store"))
         try:
@@ -3549,30 +3788,34 @@ def ep_one_rank(torch, card, nccl_train):
             alone = SpmdCtx()
             runs = {"group": served, "alone": (model, alone, params, inputs, make_prefill_step(model, alone),
                                                make_decode_step(model, alone))}
-            row = {"backend": "nccl", "mesh": mesh.shape, "layers": model.cfg.num_layers, "combine": "default"}
-            got = {}
-            for name, s in runs.items():
-                kernels.reset_launch_counts()
-                _, logits, toks, prefill_s, decode_s = serve_pass(torch, s)
-                launches = kernels.launch_counts()
-                moe_counts_are(launches, n_moe_layers(model.cfg) * (1 + DECODE_STEPS),
-                               f"expert_parallel (a) {name}")
-                if name == "group":
-                    counts = launches
-                _, aux = transformer.forward(params, inputs["tokens"], cfg=model.cfg, ctx=s[1],
-                                             dyskew=model.dyskew_init(s[1]))
-                got[name] = (logits, toks, aux["dyskew"], prefill_s, decode_s)
+            row = {"backend": "nccl", "mesh": mesh.shape, "layers": model.cfg.num_layers}
             where = "expert_parallel (a)"
-            (la, ta, da, *_), (lb, tb, db, *_) = got["group"], got["alone"]
-            check(all(torch.equal(a, b) for a, b in zip(la, lb)), f"{where}: logits differ from no group")
-            check(all(torch.equal(a, b) for a, b in zip(ta, tb)), f"{where}: tokens differ from no group")
-            pairs = tree_pairs(da, db)
-            check(all(torch.equal(a, b) for _, a, b in pairs), f"{where}: link states differ from no group")
-            row["serve"] = {
-                "logits_equal": True, "tokens_equal": True, "link_leaves_equal": len(pairs),
-                "prefill_s_group": got["group"][3], "prefill_s_alone": got["alone"][3],
-                "decode_s_group": got["group"][4], "decode_s_alone": got["alone"][4]}
-            del got, served, runs, params
+            for scatter in (False, True):
+                name = "h9" if scatter else "default"
+                got = {}
+                with use_flags(PerfFlags(moe_scatter_combine=scatter)):
+                    for kind, s in runs.items():
+                        kernels.reset_launch_counts()
+                        _, logits, toks, prefill_s, decode_s = serve_pass(torch, s)
+                        launches = kernels.launch_counts()
+                        moe_counts_are(launches, n_moe_layers(model.cfg) * (1 + DECODE_STEPS),
+                                       f"{where} {name} {kind}")
+                        if kind == "group":
+                            counts = {k: counts.get(k, 0) + v for k, v in launches.items()}
+                        _, aux = transformer.forward(params, inputs["tokens"], cfg=model.cfg, ctx=s[1],
+                                                     dyskew=model.dyskew_init(s[1]))
+                        got[kind] = (logits, toks, aux["dyskew"], prefill_s, decode_s)
+                (la, ta, da, *_), (lb, tb, db, *_) = got["group"], got["alone"]
+                check(all(torch.equal(a, b) for a, b in zip(la, lb)), f"{where} {name}: logits differ from no group")
+                check(all(torch.equal(a, b) for a, b in zip(ta, tb)), f"{where} {name}: tokens differ from no group")
+                pairs = tree_pairs(da, db)
+                check(all(torch.equal(a, b) for _, a, b in pairs), f"{where} {name}: link states differ from no group")
+                row[name] = {
+                    "logits_equal": True, "tokens_equal": True, "link_leaves_equal": len(pairs),
+                    "prefill_s_group": got["group"][3], "prefill_s_alone": got["alone"][3],
+                    "decode_s_group": got["group"][4], "decode_s_alone": got["alone"][4]}
+                del got
+            del served, runs, params
             torch.cuda.empty_cache()
         finally:
             dist.destroy_process_group()
@@ -3585,9 +3828,10 @@ def ep_one_rank(torch, card, nccl_train):
 
 def prefill_collectives(cfg, tokens, scatter):
     """(kind, group size, bytes) of each collective a rank of (b) issues in
-    a prefill of ``tokens``: a MoE layer's counts over its data group of
-    one, then the expert outputs' all-gather over the model group (default
-    combine) or the partial output's all_reduce (H9)."""
+    a prefill of ``tokens`` under the experts-only layout: a MoE layer's counts over
+    its data group of one, then the expert outputs' all-gather over the
+    model group (default combine) or the partial output's all_reduce
+    (H9)."""
     from repro_torch.models.layers.moe import capacities
 
     E, d = cfg.moe.num_experts, cfg.d_model
@@ -3597,120 +3841,251 @@ def prefill_collectives(cfg, tokens, scatter):
     return [("all-reduce", 1, 4 * 2 * E), combine] * n_moe_layers(cfg)
 
 
+def tp_prefill_collectives(cfg, tokens, scatter, model=EP_MODEL):
+    """(kind, group size, bytes) of each collective a rank of (data 1,
+    model ``model``) issues, in order, in a prefill of ``tokens`` = (B, S)
+    under the reference's layout: the embedding's sum of the ranks' rows;
+    per layer the attention's or the Mamba mixer's sum of its partial
+    output (the gated norm's sum of squares before it), then the ffn's sum
+    or a MoE layer's counts over the data group of one and its combine; the
+    last position's logits gathered over the vocabulary."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers.moe import capacities
+
+    B, S = tokens
+    d = cfg.d_model
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    act = ("all-reduce", model, B * S * d * item)
+    block = []
+    for j in range(transformer.block_period(cfg)):
+        if cfg.is_attention_layer(j) and cfg.num_heads > 0:
+            block.append(act)
+        else:
+            block += [("all-reduce", model, B * S * 4), act]
+        if cfg.is_moe_layer(j):
+            E = cfg.moe.num_experts
+            block.append(("all-reduce", 1, 4 * 2 * E))
+            block.append(act if scatter else ("all-gather", model, E * capacities(cfg, B * S)[1] * d * item))
+        elif cfg.d_ff > 0:
+            block.append(act)
+    return [act] + block * transformer.num_blocks(cfg) + [("all-gather", model, cfg.padded_vocab * B * item)]
+
+
+def tp_train_collectives(cfg, tokens, params, scatter, model=EP_MODEL):
+    """The (kind, group size, bytes) a train step issues on a rank of (data
+    1, model ``model``) under the reference's layout, sorted (the
+    backward's order is autograd's): the forward's (the prefill's but the
+    gather), each block's again in its recompute (but a closing sum that
+    no saved tensor follows: non-reentrant checkpointing stops at a block's
+    last saved tensor), the loss's max and sums; in the backward
+    ``to_shard``'s sum of each gradient of a replicated input (a layer's
+    input, a MoE layer's tokens, the logits' input) and of whole kv leaves
+    a rank uses for its share; one float32 sum a leaf over the data group
+    of one and the global norm's sum over the model group."""
+    import collections
+    import math
+
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.models import transformer
+    from repro_torch.models.param import default_rules, shard_axes
+
+    B, S = tokens
+    d = cfg.d_model
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    fwd = tp_prefill_collectives(cfg, tokens, scatter, model)[:-1]
+    nb = transformer.num_blocks(cfg)
+    act = ("all-reduce", model, B * S * d * item)
+    out = collections.Counter(fwd)
+    recompute = collections.Counter(fwd[1:])
+    last = transformer.block_period(cfg) - 1
+    if not cfg.is_moe_layer(last) and (cfg.d_ff > 0 or not cfg.is_attention_layer(last)):
+        recompute.subtract({act: nb})
+    out += recompute
+    out.update([("all-reduce", model, B * S * 4), ("all-reduce", model, 2 * B * S * 4), ("all-reduce", 1, 8), act])
+    att = transformer.attention_specs(cfg) if cfg.num_heads else {}
+    for j in range(transformer.block_period(cfg)):
+        grads = [act]
+        if cfg.is_attention_layer(j) and cfg.num_heads > 0 and cfg.num_kv_heads % model:
+            grads += [("all-reduce", model, 4 * math.prod(att[n].shape)) for n in ("wk", "wv", "bk", "bv") if n in att]
+        if cfg.is_moe_layer(j):
+            grads.append(act)
+            if scatter:
+                grads.append(("all-reduce", model, B * S * cfg.moe.top_k * 4))
+        elif cfg.d_ff > 0:
+            grads.append(act)
+        out.update(grads * nb)
+    out.update(("all-reduce", 1, 4 * p.numel()) for _, p in flatten_with_paths(params))
+    out.update([("all-reduce", model, 4 * len(shard_axes(transformer.model_specs(cfg), model, default_rules())))])
+    return sorted(out.elements())
+
+
 def ep_check(torch, one, rows, layers):
     """(b)'s checks of the ranks against each other and against the one
     process; returns (row, the ranks' summed counts)."""
+    import dataclasses
+
     import numpy as np
 
+    from repro_torch.config.base import get_config
+    from repro_torch.models.param import default_rules
     from repro_torch.roofline.analysis import analyze
 
     cfg = ranks_config(layers)
     E = cfg.moe.num_experts
-    n_serve = n_moe_layers(ranks_config())
     where = "expert_parallel (b)"
+    full_cfg = ranks_config()
     for r in rows:
-        check(r["experts_held"][1] == E // EP_MODEL, f"{where}: a rank holds {r['experts_held']}")
-        for key, shape in r["train"]["expert_leaf_shapes"].items():
-            check(shape[1] == E // EP_MODEL, f"{where}: {key} is {shape} on a rank")
-    serve = {}
-    for scatter in (False, True):
-        name = "h9" if scatter else "default"
-        got = [r["serve"][scatter] for r in rows]
-        check(all(g["checksum"] == got[0]["checksum"] for g in got), f"{where} {name}: the ranks' logits differ")
-        own = one["h9_self"]
+        check(r["held"]["experts"][1] == E // EP_MODEL and r["held"]["wq"][2] == full_cfg.num_heads // EP_MODEL
+              and r["held"]["table"][0] == full_cfg.padded_vocab // EP_MODEL, f"{where}: a rank holds {r['held']}")
+    layer_rows = {}
+    for arch in (MOE_ARCH,) + EP_DENSE_ARCHS:
+        got = [r["layers"][arch] for r in rows]
         for g in got:
-            if scatter:
-                check(g["max_abs_gap"] <= EP_H9_SPREAD * own["max_abs_gap"] and
-                      g["flips"] <= EP_H9_SPREAD * own["flips"],
-                      f"{where} h9: logits {g['max_abs_gap']} and {g['flips']} greedy tokens off one process, "
-                      f"which is {own['max_abs_gap']} and {own['flips']} off itself")
-            else:
-                check(g["band_ratio"] <= 1.0, f"{where} {name}: logits {g['band_ratio']} of the band off one process")
-                check(g["flips_outside_near_ties"] == 0, f"{where} {name}: {g['flips_outside_near_ties']} greedy "
-                      "tokens differ from one process's where its two best logits are apart")
-            moe_counts_are(g["launches"], n_serve * (1 + DECODE_STEPS), f"{where} {name}: a rank's serve pass")
-        records = got[0]["records"]
-        issued = prefill_collectives(ranks_config(), PREFILL_BATCH * PREFILL_LEN, scatter)
-        check(all(g["records"] == issued for g in got), f"{where} {name}: a rank's prefill records against the "
-              "collectives it issued")
+            check(g["embed_equal"], f"{where} {arch}: the embedding's output differs from one process")
+            check(g["max_band_ratio"] <= 1.0, f"{where} {arch}: a layer's output {g['max_band_ratio']} of the "
+                  f"band off one process's from the same input: {g['band_ratio']}")
+            check(g["other_picks_outside_near_ties"] == 0,
+                  f"{where} {arch}: a rank's router picks other experts off a near tie: {g}")
+        layer_rows[arch] = {"layers": got[0]["layers"], "max_band_ratio": max(g["max_band_ratio"] for g in got),
+                            "rows_other_picks": max(g["rows_other_picks"] for g in got),
+                            "band_ratio_by_layer": got[0]["band_ratio"]}
+
+    def wire(records):
         kinds = {}
         for kind, group, nbytes in records:
             kinds.setdefault(f"{kind} x{group}", []).append(nbytes)
         terms = analyze({"flops": 0, "bytes": 0, "collectives": [
             {"kind": k, "bytes": b, "group": g} for k, g, b in records]}, EP_MODEL, 0.0)
-        serve[name] = {key: got[0][key] for key in ("band_ratio", "max_abs_gap", "scale", "bitwise_equal",
-                                                    "flips", "positions")}
-        if scatter:
-            serve[name]["one_process_against_itself"] = own
-        serve[name].update(
-            prefill_s=[g["prefill_s"] for g in got], decode_s=[g["decode_s"] for g in got],
-            one_process_prefill_s=one["serve"][scatter]["prefill_s"],
-            one_process_decode_s=one["serve"][scatter]["decode_s"],
-            prefill_records={k: {"count": len(v), "bytes": sum(v)} for k, v in kinds.items()},
-            prefill_wire_bytes_a_rank=terms.collective_bytes_global / EP_MODEL, prefill_t_collective_s=terms.t_collective)
+        return {"records": {k: {"count": len(v), "bytes": sum(v)} for k, v in kinds.items()},
+                "wire_bytes_a_rank": terms.collective_bytes_global / EP_MODEL, "t_collective_s": terms.t_collective}
 
-    train = [r["train"] for r in rows]
-    for key, a in train[0]["dyskew"].items():
-        check(all(np.array_equal(t["dyskew"][key], a) for t in train[1:]), f"{where}: link state {key} differs "
-              "between ranks")
-    check(all(t["loss"] == train[0]["loss"] and t["grad_norm"] == train[0]["grad_norm"] for t in train[1:]),
-          f"{where}: the ranks' losses or grad norms differ")
-    base = one["train"]
-    for key in ("loss", "grad_norm"):
-        rel = max(abs(a - b) / abs(b) for a, b in zip(train[0][key], base[key]))
-        check(rel <= RANKS_LOSS_RTOL, f"{where}: {key} {train[0][key]} against one process {base[key]}")
-    link_gap = {}
-    for key, a in base["dyskew"].items():
-        b = train[0]["dyskew"][key]
-        if key.endswith("ema_loads") or "/metrics/" in key:
-            link_gap[key] = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
-        else:
-            check(np.array_equal(a, b), f"{where}: link state {key} against one process")
-    worst = {"max_rel": 0.0, "max_over_lr": 0.0, "share_off": 0.0}
-    for t in train:
-        for key, g in t["against_one_process"].items():
-            check(g["max_rel"] <= RANKS_PARAM_TOL or (g["max_over_lr"] <= 2.0 and g["share_off"] <= RANKS_NOISE_SHARE),
-                  f"{where}: parameter {key} against one process: {g}")
-            worst = {k: max(worst[k], g[k]) for k in worst}
-    for t in train:
-        moe_counts_are(t["launches"], 2 * RANKS_STEPS * n_moe_layers(cfg), f"{where}: a rank's train steps")
-    check(all(t["records"] == t["issued"] for t in train), f"{where}: a rank's train records against the "
-          "collectives it issued")
-    kinds = {}
-    for kind, group, nbytes in train[0]["records"]:
-        kinds.setdefault(f"{kind} x{group}", []).append(nbytes)
-    terms = analyze({"flops": train[0]["cost"]["flops"], "bytes": train[0]["cost"]["bytes"],
-                     "collectives": [{"kind": k, "bytes": b, "group": g} for k, g, b in train[0]["records"]]},
-                    EP_MODEL, 0.0)
-    row = {
-        "serve": serve,
-        "train": {"layers": layers, "layers_of": ranks_config().num_layers, "dtype": cfg.dtype,
-                  "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ, "steps": RANKS_STEPS,
-                  "loss": train[0]["loss"], "grad_norm": train[0]["grad_norm"],
-                  "one_process": {k: base[k] for k in ("loss", "grad_norm", "ms", "peak_memory_bytes")},
-                  "rank_ms_per_step": [t["ms"] for t in train],
-                  "peak_memory_bytes": [t["peak_memory_bytes"] for t in train],
-                  "link_states_equal_across_ranks": True, "link_float_gap_to_one_process": max(link_gap.values()),
-                  "param_gap_worst": worst,
-                  "records": {k: {"count": len(v), "bytes": sum(v)} for k, v in kinds.items()},
-                  "wire_bytes_a_rank": terms.collective_bytes_global / EP_MODEL,
-                  "t_collective_s": terms.t_collective},
-        "timed_note": "gloo stages every collective through the host: these are not NCCL's times",
-    }
+    def served_row(got, issued, launches_each, name):
+        """The ranks' served readings: the same bits on every rank, their
+        launches and prefill records; the full-depth logits against one
+        process's (the EP_SERVE_* band, greedy flips at near ties) are a
+        reading (see LAYER_TOL)."""
+        check(all(g["checksum"] == got[0]["checksum"] and g["tokens_checksum"] == got[0]["tokens_checksum"]
+                  for g in got), f"{where} {name}: the ranks' logits or tokens differ")
+        for g in got:
+            for k, n in launches_each.items():
+                check(g["launches"][k] == n, f"{where} {name}: {k} launched {g['launches'][k]}, expected {n}")
+            check(g["records"] == issued, f"{where} {name}: a rank's prefill records against the "
+                  "collectives it issued")
+        out = {key: got[0][key] for key in ("band_ratio", "max_abs_gap", "scale", "bitwise_equal", "flips",
+                                            "flips_outside_near_ties", "positions")}
+        out.update(prefill_s=[g["prefill_s"] for g in got], decode_s=[g["decode_s"] for g in got])
+        out["prefill"] = wire(got[0]["records"])
+        return out
+
+    def moe_launches(cfg):
+        return {k: n_moe_layers(cfg) * (1 + DECODE_STEPS) for k in ("topk_gating", "load_histogram", "dispatch_gather")}
+
+    moe_each = moe_launches(full_cfg)
+    serve = {}
+    for scatter in (False, True):
+        name = "h9" if scatter else "default"
+        got = [r["serve"][scatter] for r in rows]
+        serve[name] = served_row(got, tp_prefill_collectives(full_cfg, (PREFILL_BATCH, PREFILL_LEN), scatter),
+                                 moe_each, name)
+        serve[name].update(one_process_prefill_s=one["serve"][scatter]["prefill_s"],
+                           one_process_decode_s=one["serve"][scatter]["decode_s"])
+        if scatter:
+            check(all(g["second_prefill_equal"] for g in got), f"{where} h9: a rank's two H9 prefills differ")
+            serve[name]["second_prefill_equal"] = True
+    for arch in EP_DENSE_ARCHS:
+        acfg = get_config(arch)
+        got = [r["dense"][arch] for r in rows]
+        scans = {"ssd_state_scan": n_mamba_layers(acfg)} if acfg.mamba is not None else {}
+        serve[arch] = served_row(got, tp_prefill_collectives(acfg, (PREFILL_BATCH, PREFILL_LEN), False), scans,
+                                 arch)
+        serve[arch].update(one_process_prefill_s=one["dense"][arch]["prefill_s"],
+                           one_process_decode_s=one["dense"][arch]["decode_s"],
+                           ssm_heads_hd_n_a_rank=got[0]["ssm_heads_hd_n"])
+        if scans:
+            from repro_torch.models.layers.mamba2 import _dims
+
+            _, _, nh, hd, _, n = _dims(acfg)
+            check(got[0]["ssm_heads_hd_n"] == [nh // EP_MODEL, hd, n],
+                  f"{where} {arch}: a rank's ssm state holds {got[0]['ssm_heads_hd_n']}")
+
+    def train_row(train, base, name, per_element):
+        for key, a in train[0]["dyskew"].items():
+            check(all(np.array_equal(t["dyskew"][key], a) for t in train[1:]), f"{where} {name}: link state {key} "
+                  "differs between ranks")
+        check(all(t["loss"] == train[0]["loss"] and t["grad_norm"] == train[0]["grad_norm"] for t in train[1:]),
+              f"{where} {name}: the ranks' losses or grad norms differ")
+        for key in ("loss", "grad_norm"):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(train[0][key], base[key]))
+            check(rel <= RANKS_LOSS_RTOL, f"{where} {name}: {key} {train[0][key]} against one process {base[key]}")
+        link_gap = {}
+        for key, a in base["dyskew"].items():
+            b = train[0]["dyskew"][key]
+            if key.endswith("ema_loads") or "/metrics/" in key:
+                link_gap[key] = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+            else:
+                check(np.array_equal(a, b), f"{where} {name}: link state {key} against one process")
+        worst = {"max_rel": 0.0, "max_over_lr": 0.0, "share_off": 0.0}
+        worst_leaf = ("", 0.0)
+        for t in train:
+            for key, g in t["against_one_process"].items():
+                ok = g["max_over_lr"] <= 2.0
+                if per_element:
+                    ok = g["max_rel"] <= RANKS_PARAM_TOL or (ok and g["share_off"] <= RANKS_NOISE_SHARE)
+                check(ok, f"{where} {name}: parameter {key} against one process: {g}")
+                worst = {k: max(worst[k], g[k]) for k in worst}
+                worst_leaf = max(worst_leaf, (key, g["share_off"]), key=lambda kv: kv[1])
+            moe_counts_are(t["launches"], 2 * RANKS_STEPS * n_moe_layers(ranks_config(t["layers"])),
+                           f"{where} {name}: a rank's train steps")
+            check(sorted(t["records"]) == sorted(t["issued"]), f"{where} {name}: a rank's train records against "
+                  "the collectives it issued")
+        terms = wire(train[0]["records"])
+        return {"layers": train[0]["layers"], "layers_of": full_cfg.num_layers, "dtype": cfg.dtype,
+                "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ, "steps": RANKS_STEPS,
+                "params_a_rank": train[0]["params_a_rank"], "sliced_leaves": len(train[0]["sliced_leaves"]),
+                "loss": train[0]["loss"], "grad_norm": train[0]["grad_norm"],
+                "one_process": {k: base[k] for k in ("loss", "grad_norm", "ms", "peak_memory_bytes")},
+                "rank_ms_per_step": [t["ms"] for t in train],
+                "peak_memory_bytes": [t["peak_memory_bytes"] for t in train],
+                "link_states_equal_across_ranks": True, "link_float_gap_to_one_process": max(link_gap.values()),
+                "param_gap_worst": worst, "param_share_off_worst_leaf": worst_leaf, **terms}
+
+    for r in rows:
+        r["train"]["layers"] = layers
+        r["experts_only"]["train"]["layers"] = EP_EXPERT_LAYERS
+    check(rows[0]["train"]["params_a_rank"] == ep_rank_params(cfg, default_rules()),
+          f"{where}: a rank holds {rows[0]['train']['params_a_rank']} parameters")
+    train = train_row([r["train"] for r in rows], one["train"], "reference layout", False)
+    got = [r["experts_only"]["serve"] for r in rows]
+    for g in got:
+        check(g["bitwise_equal"], f"{where} experts only: the default combine's logits differ from one process")
+    served_cfg = dataclasses.replace(full_cfg, num_layers=EP_EXPERT_LAYERS)
+    experts = {"serve": served_row(got, prefill_collectives(served_cfg, PREFILL_BATCH * PREFILL_LEN, False),
+                                   moe_launches(served_cfg), "experts only"),
+               "train": train_row([r["experts_only"]["train"] for r in rows], one["train_experts"], "experts only",
+                                  True)}
+    row = {"layers_from_one_process": layer_rows, "serve": serve, "train": train, "experts_only": experts,
+           "timed_note": "gloo stages every collective through the host: these are not NCCL's times"}
     summed = {}
     for r in rows:
-        for got in [r["serve"][False]["launches"], r["serve"][True]["launches"], r["train"]["launches"]]:
+        for got in ([r["serve"][False]["launches"], r["serve"][True]["launches"], r["train"]["launches"],
+                     r["experts_only"]["serve"]["launches"], r["experts_only"]["train"]["launches"]]
+                    + [r["dense"][arch]["launches"] for arch in EP_DENSE_ARCHS]):
             summed = {k: summed.get(k, 0) + got[k] for k in got}
     return row, summed
 
 
+def n_mamba_layers(cfg):
+    from repro_torch.models import transformer
+
+    return len(transformer.mamba_layer_positions(cfg)) * transformer.num_blocks(cfg)
+
+
 def phase_expert_parallel(torch, nccl_train, card="cuda"):
     """The model axis: one NCCL rank with a model group of one against no
-    group (a); granite's 32 experts over EP_MODEL gloo ranks sharing the
-    card, served at full width and depth and trained at full width, held
-    to one process at num_ep_shards EP_MODEL (b); the collectives of a
-    prefill and a train step on the model group (c).  Returns the main
-    path's launch counts."""
+    group (a); EP_MODEL gloo ranks sharing the card under the reference's
+    layout and under the experts-only one, held to one process (b); the model group's
+    collectives of a prefill and a train step (c).  Returns the main path's
+    launch counts."""
     import shutil
     import tempfile
 
@@ -3742,6 +4117,17 @@ def phase_expert_parallel(torch, nccl_train, card="cuda"):
         row["ranks_seconds"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(where, ignore_errors=True)
+    emit({"phase": "expert_parallel_readings", "rank_seconds": [r["seconds"] for r in rows],
+          "layers": [{a: {k: v for k, v in r["layers"][a].items() if k != "band_ratio"} for a in r["layers"]}
+                     for r in rows],
+          "served": {str(c): {k: rows[0]["serve"][c][k] for k in ("band_ratio", "max_abs_gap", "flips",
+                                                                  "flips_outside_near_ties", "prefill_s", "decode_s")}
+                     for c in (False, True)},
+          "dense": {a: {k: rows[0]["dense"][a][k] for k in ("band_ratio", "max_abs_gap", "flips",
+                                                            "flips_outside_near_ties", "prefill_s", "decode_s")}
+                    for a in EP_DENSE_ARCHS},
+          "train": {k: rows[0]["train"][k] for k in ("loss", "grad_norm", "ms", "peak_memory_bytes")},
+          "one_process": {"train": {k: one["train"][k] for k in ("loss", "grad_norm", "ms")}}})
     row["ranks"], got = ep_check(torch, one, rows, layers)
     counts = {k: counts.get(k, 0) + got[k] for k in got}
     row["launches"] = counts
@@ -3957,6 +4343,7 @@ def main() -> int:
                     help="also trace one prefill and four decode steps of each model, and one "
                          "training step, with torch.profiler")
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     import torch
 
@@ -4053,6 +4440,7 @@ def main() -> int:
             if c is not None:
                 rows[-1][key] = {k: c[k] for k in (
                     "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms", "bytes")}
+    emit({"phase": "script", "seconds": time.perf_counter() - t_script})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

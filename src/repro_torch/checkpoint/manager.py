@@ -23,12 +23,13 @@
     another world size, or where that file is missing, such a leaf starts
     at zero: a residual is what one rank's quantization left over, and has
     no meaning for another split of the batch.
-  * elastic across the model axis (``ep_group``, with ``experts``, the
-    ``{key path: axis}`` of the state's expert leaves,
-    ``param.expert_axes``): each rank holds its slice of an expert leaf,
-    so ``save`` all-gathers each one over the model group of data rank 0
-    and the file holds whole leaves, as one process writes them;
-    ``restore`` slices each for the restoring rank's model index.  A
+  * elastic across the model axis (``ep_group``, with ``shards``, the
+    ``{key path: axis}`` of the state's sliced leaves, ``param.shard_axes``
+    of the train state's specs under the rule table): each rank holds its
+    slice of such a leaf along its own axis, so ``save`` all-gathers each
+    one over the model group of data rank 0 and the file holds whole
+    leaves, as one process writes them; ``restore`` slices each for the
+    restoring rank's model index.  A
     checkpoint written at (data 1, model 2) restores at (data 1, model 4),
     at (data 2, model 1) and in one process.  The rank files of a mesh
     with a model axis are named by the global rank and both axes,
@@ -52,7 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch import distributed
-from repro_torch.models.param import expert_shard
+from repro_torch.models.param import take_shard
 
 BF16_RAW = "bfloat16"
 #: Top-level keys of a train state that each rank holds for itself.
@@ -114,11 +115,11 @@ def _from_host(arr: np.ndarray, kind: Optional[str], ref: torch.Tensor, key: str
 
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3, group: distributed.Group = None,
-                 ep_group: distributed.Group = None, experts: Optional[Dict[str, int]] = None):
+                 ep_group: distributed.Group = None, shards: Optional[Dict[str, int]] = None):
         self.directory = directory
         self.keep = keep
         self.ep_group = ep_group
-        self.experts = experts or {}
+        self.shards = shards or {}
         self.data_rank = distributed.rank_of(group)
         self.model_rank = distributed.rank_of(ep_group)
         self.model_size = distributed.world_size(ep_group)
@@ -133,14 +134,15 @@ class CheckpointManager:
         return os.path.join(self.directory, f"step_{step:08d}.rank{self.rank}{self._tag}.npz")
 
     def _whole(self, replicated: Any) -> Any:
-        """The replicated part with each expert leaf gathered whole over
-        the model group (only data rank 0's group, which writes)."""
+        """The replicated part with each sliced leaf gathered whole over
+        the model group along its axis (only data rank 0's group, which
+        writes)."""
         if self.ep_group is None or self.data_rank != 0:
             return replicated
         leaves = {}
         for key, leaf in flatten_with_paths(replicated):
-            if key in self.experts:
-                axis = self.experts[key]
+            if key in self.shards:
+                axis = self.shards[key]
                 leaf = distributed.gather_shards(leaf.movedim(axis, 0), self.ep_group).movedim(0, axis)
             leaves[key] = leaf
         return _unflatten_like(replicated, leaves)
@@ -234,8 +236,8 @@ class CheckpointManager:
 
     def restore(self, like: Any, step: Optional[int] = None) -> Any:
         """Restore into the structure of ``like``: each leaf comes back with
-        the dtype and on the device of ``like``'s leaf at its path, an
-        expert leaf as this rank's slice.  The ``RANK_LOCAL`` leaves of
+        the dtype and on the device of ``like``'s leaf at its path, a
+        sliced leaf as this rank's slice.  The ``RANK_LOCAL`` leaves of
         ``like`` come from this rank's file at this mesh shape, or start at
         zero (see the module docstring)."""
         if step is None:
@@ -250,8 +252,8 @@ class CheckpointManager:
         with np.load(os.path.join(path, "shard_host0.npz")) as data:
             for key, leaf in flatten_with_paths(replicated):
                 arr = data[key]
-                if key in self.experts:
-                    arr = expert_shard(arr, self.experts[key], self.model_rank, self.model_size)
+                if key in self.shards:
+                    arr = take_shard(arr, self.shards[key], self.model_rank, self.model_size)
                 ref = torch.as_tensor(leaf)
                 if key.startswith("dyskew/") and arr.shape != tuple(ref.shape):
                     out[key] = ref.clone()

@@ -10,13 +10,13 @@ two process groups: the **data group** of the D ranks with the same ``m``
 (the loss's and the gradients' sums, the link's loads) and the **model
 group** of the M ranks with the same ``d``.  The ranks of a model group
 hold the same rows of every batch and the same replicated parameters; each
-holds E/M of the experts (``experts`` → ``model``, the one rule of
-``repro``'s ``default_rules`` carried so far, ``models/param.py``).  The
-backend follows the device, NCCL for ``cuda`` (one card a rank) and gloo
-for ``cpu``, with no fallback from one to the other.  The rest of the
-``model`` axis (heads, mlp, vocab), FSDP of ``embed`` over ``data`` and the
-pod shapes are ``ROADMAP.md`` queue A: they raise rather than quietly give
-another mesh.
+holds its slice of what ``repro``'s ``default_rules`` put on ``model``
+(experts, heads, kv_heads, mlp, vocab, ssm_heads, with ``resolve_pspec``'s
+fallback to replication; ``models/param.py``).  The backend follows the
+device, NCCL for ``cuda`` (one card a rank) and gloo for ``cpu``, with no
+fallback from one to the other.  What is still missing is ``ROADMAP.md``
+queue A: the dry-run of a pod's rank, FSDP of ``embed`` over ``data`` and
+the pod meshes, which raise rather than quietly give another mesh.
 """
 
 from __future__ import annotations
@@ -33,8 +33,9 @@ import torch
 import torch.distributed as dist
 
 _MULTI_GPU = ("the pod meshes are multi-GPU work still to port (ROADMAP.md queue A: a dry-run "
-              "of a (data 16, model 16) rank, tensor parallelism and FSDP over the model and "
-              "data groups); the port's mesh shards the data axis and the experts only")
+              "of a (data 16, model 16) rank, FSDP of embed over the data group, then the pod "
+              "meshes); the port's mesh shards the data axis and the model axis by repro's "
+              "default_rules, embed left whole")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +48,7 @@ class Mesh:
     #: The global rank, ``data_rank · M + model_rank``.
     rank: int = 0
     #: The model group: the ranks with this rank's data index, over which
-    #: the experts are sharded (None: one process).
+    #: the parameters are sharded (None: one process).
     ep_group: Any = None
 
     @property

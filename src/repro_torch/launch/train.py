@@ -15,7 +15,9 @@ temporary directory; under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and
 its own card over NCCL (more ranks than cards raise), with ``--device cpu``
 the ranks meet over gloo.  ``--model M`` makes the mesh (data ranks / M,
 model M): the M ranks of a model group train on the same rows, each with
-E/M of every MoE layer's experts.  ``--batch`` is the global batch, split
+its slice of every leaf ``repro``'s ``default_rules`` shard over the model
+axis (E/M of the experts, H/M of the heads, the ffn's width and the
+vocabulary split M ways, with ``resolve_pspec``'s fallback to whole leaves).  ``--batch`` is the global batch, split
 over the data ranks; rank 0 logs and checkpoints.
 """
 
@@ -69,7 +71,7 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="torch device (default: the GPU)")
     ap.add_argument("--ranks", type=int, default=1, help="ranks to spawn on this machine")
-    ap.add_argument("--model", type=int, default=1, help="the model axis: ranks that share a batch and split the experts")
+    ap.add_argument("--model", type=int, default=1, help="the model axis: ranks that share a batch and split the model")
     return ap.parse_args(argv)
 
 

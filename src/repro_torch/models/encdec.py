@@ -12,6 +12,10 @@ encoder output and written to ``kv_cross``; the prompt attends to all
 to the first S frames only (S the prompt length) and so leaves its own
 uncached forward whenever S < ``encoder_len``; the port computes the
 uncached function on both paths.
+
+Under a model group (``group``) the layers hold the rank's heads, ffn
+width and vocabulary rows as in ``transformer`` (the tied table serves the
+embedding and the logits), and the caches the rank's kv heads.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import distributed
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config.base import ArchConfig
 from repro_torch.models.layers import basic
@@ -32,12 +37,15 @@ from repro_torch.models.layers.attention import (
     mlp_apply,
     mlp_specs,
 )
+from repro_torch.models.layers.moe import SpmdCtx
 from repro_torch.models.transformer import (
     _stack_specs,
     _take_block,
     _unbind_blocks,
     decode_position,
+    kv_heads_held,
     model_dtype,
+    vocab_group,
 )
 
 
@@ -80,7 +88,7 @@ def model_specs(cfg: ArchConfig) -> Dict:
     }
 
 
-def encode(params: Dict, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def encode(params: Dict, frames: torch.Tensor, cfg: ArchConfig, group: distributed.Group = None) -> torch.Tensor:
     """frames: (B, T_enc, d) stubbed frame embeddings → (B, T_enc, d).
     Bidirectional self-attention layers; with ``cfg.remat`` and grad on,
     each layer runs under ``torch.utils.checkpoint``."""
@@ -91,10 +99,10 @@ def encode(params: Dict, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
     def layer(lp: Dict, x: torch.Tensor) -> torch.Tensor:
         h = basic.norm_apply(lp["norm1"], x, cfg.norm)
-        a, _ = attention_apply(lp["attn"], h, cfg=cfg, positions=positions, causal=False)
+        a, _ = attention_apply(lp["attn"], h, cfg=cfg, positions=positions, causal=False, group=group)
         x = x + a
         h = basic.norm_apply(lp["norm2"], x, cfg.norm)
-        return x + mlp_apply(lp["ffn"], h, cfg)
+        return x + mlp_apply(lp["ffn"], h, cfg, group)
 
     remat = cfg.remat and torch.is_grad_enabled()
     for bp in _unbind_blocks(params["enc_blocks"], cfg.encoder_layers):
@@ -107,13 +115,14 @@ def encode(params: Dict, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 def decode_state_init(
     cfg: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype,
-    device: DeviceLike = None,
+    device: DeviceLike = None, ctx: SpmdCtx = SpmdCtx(),
 ) -> Dict:
     """Self-attention caches of ``max_seq`` positions and cross-attention
-    caches of ``encoder_len`` frames, per decoder layer, in ``dtype``."""
+    caches of ``encoder_len`` frames, per decoder layer, in ``dtype``; the
+    rank's kv heads under ``ctx``'s model group."""
     dev = resolve_device(device)
     nb = cfg.num_layers
-    K, hd = cfg.num_kv_heads, cfg.head_dim_
+    K, hd = kv_heads_held(cfg, ctx), cfg.head_dim_
 
     def kv(seq: int) -> Dict:
         return {name: torch.zeros((nb, batch, seq, K, hd), dtype=dtype, device=dev)
@@ -134,6 +143,7 @@ def forward(
     cfg: ArchConfig,
     enc_out: Optional[torch.Tensor] = None,  # (B, T, d); None during decode
     decode_state: Optional[Dict] = None,
+    ctx: SpmdCtx = SpmdCtx(),
 ) -> Tuple[torch.Tensor, Dict]:
     """Decoder forward.  At prefill pass ``enc_out`` (with ``decode_state``
     the cross K/V are built and cached); during decode pass
@@ -149,19 +159,21 @@ def forward(
     dev = tokens.device
     start = decode_position(decode_state) if decode_state is not None else 0
     positions = start + torch.arange(S, dtype=torch.int32, device=dev)
-    x = basic.embed_apply(params["embed"], tokens, dtype)
+    group = ctx.ep_group
+    vocab = vocab_group(params, cfg, ctx)
+    x = basic.embed_apply(params["embed"], tokens, dtype, vocab)
     x = x + sinusoidal(positions, cfg.d_model, dtype)
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    hd = cfg.head_dim_
 
     def layer(b: int, lp: Dict, x: torch.Tensor) -> torch.Tensor:
         h = basic.norm_apply(lp["norm1"], x, cfg.norm)
         if decode_state is not None:
             a, _ = attention_apply(
                 lp["attn"], h, cfg=cfg, positions=positions,
-                cache=_take_block(decode_state["kv_self"], b), cache_index=start,
+                cache=_take_block(decode_state["kv_self"], b), cache_index=start, group=group,
             )
         else:
-            a, _ = attention_apply(lp["attn"], h, cfg=cfg, positions=positions)
+            a, _ = attention_apply(lp["attn"], h, cfg=cfg, positions=positions, group=group)
         x = x + a
 
         h = basic.norm_apply(lp["norm_x"], x, cfg.norm)
@@ -169,21 +181,27 @@ def forward(
             c, _ = attention_apply(
                 lp["cross"], h, cfg=cfg, positions=positions, causal=False, kv=enc_out,
                 cache=_take_block(decode_state["kv_cross"], b) if decode_state is not None else None,
-                cache_index=0,
+                cache_index=0, group=group,
             )
         else:
+            # The query heads against the cached cross K/V (the rank's).
             cross = _take_block(decode_state["kv_cross"], b)
-            q = torch.einsum("bsd,dhk->bshk", h, lp["cross"]["wq"].to(h.dtype))
+            H, K = lp["cross"]["wq"].shape[-2], cross["k"].shape[-2]
+            sliced = H < cfg.num_heads
+            hq = distributed.to_shard(h, group) if sliced else h
+            q = torch.einsum("bsd,dhk->bshk", hq, lp["cross"]["wq"].to(h.dtype))
             if cfg.qkv_bias:
                 q = q + lp["cross"]["bq"].to(h.dtype)
             att = decode_attention(q.reshape(B, S, K, H // K, hd), cross["k"], cross["v"],
                                    cross["k"].shape[1])
             c = torch.einsum("bshk,hkd->bsd", att.reshape(B, S, H, hd),
                              lp["cross"]["wo"].to(h.dtype))
+            if sliced:
+                c = distributed.sum_shards(c, group)
         x = x + c
 
         h = basic.norm_apply(lp["norm2"], x, cfg.norm)
-        return x + mlp_apply(lp["ffn"], h, cfg)
+        return x + mlp_apply(lp["ffn"], h, cfg, group)
 
     # The decode state is updated in place, which a recompute would repeat:
     # remat is for the training forward only.
@@ -194,7 +212,7 @@ def forward(
         else:
             x = layer(b, bp["l0"], x)
     x = basic.norm_apply(params["final_norm"], x, cfg.norm)
-    logits = basic.logits_apply(params["embed"], x, cfg.vocab_size)
+    logits = basic.logits_apply(params["embed"], x, cfg.vocab_size, vocab)
 
     aux: Dict[str, Any] = {"metrics": {}}
     if decode_state is not None:

@@ -4,6 +4,18 @@ The prefill path walks the queries in chunks, which bounds the float32
 score matrix to (q_chunk × Skv) per head; the matrix products go to
 ``torch.einsum`` as ``repro`` leaves them to its compiler.  Decode attends
 a single query step against the cache.
+
+Under a model group (``group``) the layers hold what the rule table gives a
+rank, and tell it from their leaves' shapes against the config's: a rank's
+H/M query heads (``wq``, ``bq``, ``wo``), with its K/M kv heads where M
+divides K, else the whole kv leaves of which it uses the heads its query
+heads map to (``kv_heads_of``: starcoder2's 2 kv heads at M 4 give ranks 0-1
+kv head 0 and ranks 2-3 kv head 1; MQA always kv head 0).  The replicated
+input of the column-sharded projections, and whole kv leaves a rank uses
+for its share only, go through ``to_shard``; ``wo`` is row-sharded and its
+partial output summed by ``sum_shards``.  The KV cache holds the rank's kv
+heads.  ``mlp_apply`` splits the ffn's width the same way (``w_gate`` /
+``w_up`` by columns, ``w_down`` by rows, then ``sum_shards``).
 """
 
 from __future__ import annotations
@@ -12,6 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import distributed
 from repro_torch.config.base import ArchConfig
 from repro_torch.models.layers.basic import act, apply_rope
 from repro_torch.models.param import spec
@@ -50,6 +63,25 @@ def attention_specs(cfg: ArchConfig) -> Dict:
         out["bk"] = spec((K, hd), ("kv_heads", None), init="zeros")
         out["bv"] = spec((K, hd), ("kv_heads", None), init="zeros")
     return out
+
+
+def kv_heads_of(cfg: ArchConfig, heads: int, kv_width: int, rank: int) -> Tuple[int, int]:
+    """(first kv head, kv heads) that a rank holding ``heads`` of the
+    query heads (its rank-th block) and ``kv_width`` of the kv heads uses:
+    all of them where its kv leaves are its own slice or whole with whole
+    query heads, else the kv heads its query heads map to.  A rank whose
+    query heads straddle kv groups unevenly raises."""
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    G = H // K
+    if heads == H or kv_width < K:
+        return 0, kv_width
+    if heads % G == 0:
+        return rank * heads // G, heads // G
+    if G % heads == 0:
+        return rank * heads // G, 1
+    raise NotImplementedError(
+        f"{heads} query heads a rank straddle the {K} kv groups of {G} heads: a kv layout the port "
+        "has no slice for (ROADMAP.md queue A)")
 
 
 def _project_qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig, kv: Optional[torch.Tensor] = None):
@@ -166,6 +198,7 @@ def attention_apply(
     cache_index: Optional[int] = None,              # write offset
     kv: Optional[torch.Tensor] = None,  # cross-attention source (B, Skv, d)
     q_chunk: int = 512,
+    group: distributed.Group = None,    # the model group
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Self-attention, or cross-attention to ``kv`` (no RoPE).  Returns
     (output (B,S,d), updated cache or None).
@@ -179,7 +212,22 @@ def attention_apply(
     which leaves its own uncached forward when S < Skv).
     """
     B, S, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    hd = cfg.head_dim_
+    H = p["wq"].shape[-2]                  # this rank's query heads
+    sliced = H < cfg.num_heads
+    if sliced:
+        rank = distributed.rank_of(group)
+        lo, K = kv_heads_of(cfg, H, p["wk"].shape[-2], rank)
+        x = distributed.to_shard(x, group)
+        if kv is not None:
+            kv = distributed.to_shard(kv, group)
+        if p["wk"].shape[-2] == cfg.num_kv_heads:
+            # Whole kv leaves: this rank's kv heads of them, each rank's
+            # part of their gradient summed over the group.
+            names = [n for n in ("wk", "wv", "bk", "bv") if n in p]
+            p = dict(p, **{n: distributed.to_shard(p[n], group)[..., lo:lo + K, :] for n in names})
+    else:
+        K = cfg.num_kv_heads
     G = H // K
 
     q, k, v = _project_qkv(p, x, cfg, kv)
@@ -221,7 +269,7 @@ def attention_apply(
 
     out = out.reshape(B, S, H, hd)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return y, new_cache
+    return (distributed.sum_shards(y, group) if sliced else y), new_cache
 
 
 # ------------------------------- MLP ---------------------------------- #
@@ -241,10 +289,16 @@ def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict:
     }
 
 
-def mlp_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, group: distributed.Group = None) -> torch.Tensor:
+    """The ffn; under a model group ``group`` with its width sliced, this
+    rank's columns and rows, the partial output summed over the group."""
+    sliced = p["w_up"].shape[-1] < cfg.d_ff
+    if sliced:
+        x = distributed.to_shard(x, group)
     if cfg.mlp_act in ("swiglu", "geglu"):
         inner = "silu" if cfg.mlp_act == "swiglu" else "gelu"
         h = act(inner, x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
     else:
         h = act(cfg.mlp_act, x @ p["w_up"].to(x.dtype))
-    return h @ p["w_down"].to(x.dtype)
+    y = h @ p["w_down"].to(x.dtype)
+    return distributed.sum_shards(y, group) if sliced else y

@@ -1,4 +1,12 @@
-"""Norms, activations, embeddings, positional encodings."""
+"""Norms, activations, embeddings, positional encodings.
+
+Under a model group whose ``vocab`` rule slices the tables, a rank holds
+rows ``[m·V/M, (m+1)·V/M)`` of the (padded) vocabulary: ``embed_apply``
+looks up the tokens in its rows, zeros for the others, and sums the
+ranks' parts; ``logits_apply`` gives the logits of its columns, the pad
+columns masked where they fall in its rows (on the last rank only); and
+``gather_vocab`` joins the ranks' columns of a few positions.  A tied
+table serves both."""
 
 from __future__ import annotations
 
@@ -7,6 +15,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import distributed
 from repro_torch.models.param import spec
 
 
@@ -53,24 +62,52 @@ def embedding_specs(vocab_padded: int, d: int) -> Dict:
     return {"table": spec((vocab_padded, d), ("vocab", "embed"), scale=1.0)}
 
 
-def embed_apply(p: Dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return p["table"].to(dtype)[tokens.to(torch.int64)]
+def embed_apply(p: Dict, tokens: torch.Tensor, dtype: torch.dtype,
+                group: distributed.Group = None) -> torch.Tensor:
+    """The tokens' rows of the table; with ``group`` (the table is this
+    rank's rows of the vocabulary) each rank's rows, zeros for the tokens
+    outside them, summed over the group: one rank adds each row and the
+    others exact zeros."""
+    table = p["table"].to(dtype)
+    tokens = tokens.to(torch.int64)
+    if group is None:
+        return table[tokens]
+    rows = table.shape[0]
+    local = tokens - distributed.rank_of(group) * rows
+    inside = (local >= 0) & (local < rows)
+    x = torch.where(inside[..., None], table[local.clamp(0, rows - 1)], 0.0)
+    return distributed.sum_shards(x, group)
 
 
-def logits_apply(p: Dict, x: torch.Tensor, true_vocab: int) -> torch.Tensor:
+def logits_apply(p: Dict, x: torch.Tensor, true_vocab: int,
+                 group: distributed.Group = None) -> torch.Tensor:
     """Tied/untied output head; pad-vocab logits masked to the type's
-    lowest finite value."""
+    lowest finite value.  With ``group`` the table is this rank's rows of
+    the vocabulary and the logits its columns."""
     table = p["table"].to(x.dtype)
+    rows = table.shape[0]
+    first = 0
+    if group is not None:
+        x = distributed.to_shard(x, group)
+        first = distributed.rank_of(group) * rows
     logits = torch.matmul(x, table.t())
-    vpad = table.shape[0]
-    if vpad != true_vocab:
+    pad = true_vocab - first             # this rank's first pad column
+    if pad < rows:
         # In place: at full width the logits are the largest tensor of a
         # prefill, and a second copy of them would be the peak of memory.
         # ``fill_`` with a number: an assigned number would become a tensor
         # on the host for a CUDA tensor and on the device for a ``meta``
         # one, and be written by different ops.
-        logits[..., true_vocab:].fill_(torch.finfo(logits.dtype).min)
+        logits[..., max(pad, 0):].fill_(torch.finfo(logits.dtype).min)
     return logits
+
+
+def gather_vocab(logits: torch.Tensor, group: distributed.Group) -> torch.Tensor:
+    """The ranks' columns of ``logits`` joined in rank order (one
+    all-gather): the whole vocabulary's."""
+    if group is None:
+        return logits
+    return distributed.gather_shards(logits.movedim(-1, 0), group).movedim(0, -1)
 
 
 # ------------------------------ RoPE ---------------------------------- #

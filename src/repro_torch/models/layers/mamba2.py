@@ -19,6 +19,16 @@ place and through ``out=``.  With grad on and an input that requires grad
 refuses ``out=`` and in-place changes to what it saved, and the scan runs as
 ``StateScan``, whose backward is the hand-written ``ssd_state_scan_bwd``
 kernel on the card.  Both arms round the same operations in the same order.
+
+Under a model group (``group``) whose ``ssm_heads`` / ``mlp`` rules slice
+the layer, a rank holds nh/M heads: its columns of ``w_z`` / ``w_x`` /
+``conv_x`` / ``w_dt`` and its ``dt_bias`` / ``A_log`` / ``D``, its rows of
+``w_out``, whose partial output ``sum_shards`` adds up.  The scan runs on
+the rank's heads.  ``w_B`` / ``w_C`` / ``conv_B`` / ``conv_C`` and
+``norm_scale`` stay whole, and a rank uses the B/C groups of its heads
+(``mamba_heads_of``) and its part of the norm's scale, through
+``to_shard``.  The gated RMSNorm's sum of squares over ``d_inner`` is
+summed over the group.  The decode state holds the rank's heads and groups.
 """
 
 from __future__ import annotations
@@ -28,11 +38,12 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import distributed
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config.base import ArchConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers.basic import norm_apply
-from repro_torch.models.param import spec
+from repro_torch.models.param import local_shape, spec
 
 #: (states (C, H, P, N), decay (C, H)) → (C, H, P, N) float32 exclusive prefix.
 Scan = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -67,6 +78,38 @@ def mamba_specs(cfg: ArchConfig) -> Dict:
         "norm_scale": spec((di,), (None,), init="ones"),
         "w_out": spec((di, d), ("mlp", "embed")),
     }
+
+
+def mamba_heads_of(cfg: ArchConfig, heads: int, rank: int) -> Tuple[int, int]:
+    """(first B/C group, groups) that a rank holding ``heads`` of the nh
+    heads (its rank-th block) uses.  A block of heads that straddles the
+    groups unevenly raises."""
+    _, _, nh, _, g, _ = _dims(cfg)
+    hpg = nh // g
+    if heads == nh:
+        return 0, g
+    if heads % hpg == 0:
+        return rank * heads // hpg, heads // hpg
+    if hpg % heads == 0:
+        return rank * heads // hpg, 1
+    raise NotImplementedError(
+        f"{heads} Mamba heads a rank straddle the {g} B/C groups of {hpg} heads: a layout the port has "
+        "no slice for (ROADMAP.md queue A)")
+
+
+def mamba_layout(cfg: ArchConfig, model: int, rules) -> Tuple[int, int, int]:
+    """(heads, inner width, B/C groups) a rank holds under a model axis of
+    ``model`` and ``rules``; heads and width that are not sliced together
+    raise."""
+    d, di, nh, hd, g, n = _dims(cfg)
+    specs = mamba_specs(cfg)
+    heads = local_shape(specs["w_dt"], model, rules)[-1]
+    width = local_shape(specs["w_x"], model, rules)[-1]
+    if width != heads * hd:
+        raise NotImplementedError(
+            f"the rule table gives a rank {heads} of {nh} Mamba heads but {width} of {di} inner "
+            "channels: the port slices them together (ROADMAP.md queue A)")
+    return heads, width, mamba_heads_of(cfg, heads, 0)[1]
 
 
 def _causal_conv(x: torch.Tensor, kernel: torch.Tensor, window: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -202,6 +245,7 @@ def mamba_apply(
     cfg: ArchConfig,
     state: Optional[Dict] = None,      # decode state {"ssm", "conv_x", "conv_B", "conv_C"}
     scan: Optional[Scan] = None,
+    group: distributed.Group = None,   # the model group
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence (train/prefill) when state is None or S > 1; single-step
     decode otherwise. Returns (y (B,S,d), new_state or None).  ``state`` is
@@ -214,18 +258,37 @@ def mamba_apply(
     dtype = xin.dtype
     f32 = torch.float32
 
+    w_B, w_C, conv_B, conv_C, scale = p["w_B"], p["w_C"], p["conv_B"], p["conv_C"], p["norm_scale"]
+    nh_all, hpg = nh, nh // g
+    nh = p["w_dt"].shape[-1]                                        # this rank's heads
+    sliced = nh < nh_all
+    g_lo = h_lo = 0
+    if sliced:
+        rank = distributed.rank_of(group)
+        h_lo = rank * nh
+        if p["w_x"].shape[-1] != nh * hd:
+            raise NotImplementedError(f"{nh} Mamba heads a rank with {p['w_x'].shape[-1]} inner channels: the "
+                                      "port slices them together (ROADMAP.md queue A)")
+        g_lo, g = mamba_heads_of(cfg, nh, rank)
+        xin = distributed.to_shard(xin, group)
+        # Whole leaves this rank uses for its heads only.
+        w_B, w_C, conv_B, conv_C = (distributed.to_shard(t, group)[:, g_lo:g_lo + g]
+                                    for t in (w_B, w_C, conv_B, conv_C))
+        scale = distributed.to_shard(scale, group)[h_lo * hd:(h_lo + nh) * hd]
+        di = nh * hd
+
     z = xin @ p["w_z"].to(dtype)                                   # (B,S,di)
     xproj = xin @ p["w_x"].to(dtype)                               # (B,S,di)
-    Bproj = xin @ p["w_B"].to(dtype).reshape(d, g * n)             # (B,S,g*n)
-    Cproj = xin @ p["w_C"].to(dtype).reshape(d, g * n)
+    Bproj = xin @ w_B.to(dtype).reshape(d, g * n)                  # (B,S,g*n)
+    Cproj = xin @ w_C.to(dtype).reshape(d, g * n)
     dt = xin @ p["w_dt"].to(dtype)                                 # (B,S,nh)
 
     A = -torch.exp(p["A_log"].to(f32))
     dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))
     D = p["D"].to(f32)
     conv_x = p["conv_x"].to(dtype)
-    conv_B = p["conv_B"].to(dtype).reshape(w, g * n)
-    conv_C = p["conv_C"].to(dtype).reshape(w, g * n)
+    conv_B = conv_B.to(dtype).reshape(w, g * n)
+    conv_C = conv_C.to(dtype).reshape(w, g * n)
 
     if state is None or S > 1:
         # Full-sequence path (train, or prefill seeding a decode state).
@@ -268,7 +331,7 @@ def mamba_apply(
         Cco = F.silu(Cco).reshape(B, g, n)
         xh = xconv.reshape(B, nh, hd)
 
-        head_group = torch.arange(nh, device=xin.device) // (nh // g)
+        head_group = (h_lo + torch.arange(nh, device=xin.device)) // hpg - g_lo
         dt1 = dt[:, 0]                                             # (B,nh)
         da = torch.exp(dt1 * A)                                    # (B,nh)
         Bh = Bco[:, head_group]                                    # (B,nh,n)
@@ -284,14 +347,27 @@ def mamba_apply(
 
     y = y.reshape(B, S, di).to(dtype)
     y = y * F.silu(z)
-    y = norm_apply({"scale": p["norm_scale"]}, y, "rmsnorm")
-    return y @ p["w_out"].to(dtype), new_state
+    if not sliced:
+        y = norm_apply({"scale": scale}, y, "rmsnorm")
+        return y @ p["w_out"].to(dtype), new_state
+    # The gated RMSNorm over all of d_inner: the sum of squares of the
+    # rank's channels summed over the group, used for the rank's channels
+    # only (its gradient summed back by ``to_shard``).
+    y32 = y.to(f32)
+    ss = distributed.sum_shards(torch.sum(y32 * y32, dim=-1, keepdim=True), group)
+    var = distributed.to_shard(ss, group) / (nh_all * hd)
+    y = (y32 * torch.rsqrt(var + 1e-6) * scale.to(f32)).to(dtype)
+    return distributed.sum_shards(y @ p["w_out"].to(dtype), group), new_state
 
 
 def mamba_state_init(
-    cfg: ArchConfig, batch: int, dtype: torch.dtype, device: DeviceLike = None,
+    cfg: ArchConfig, batch: int, dtype: torch.dtype, device: DeviceLike = None, ctx=None,
 ) -> Dict:
+    """A layer's decode state; under ``ctx``'s model group (a
+    ``moe.SpmdCtx``) the rank's heads and B/C groups."""
     d, di, nh, hd, g, n = _dims(cfg)
+    if ctx is not None and ctx.ep_group is not None:
+        nh, di, g = mamba_layout(cfg, ctx.num_ep_shards, ctx.rules)
     w = cfg.mamba.conv_width
     device = resolve_device(device)
     return {

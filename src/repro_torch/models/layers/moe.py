@@ -54,7 +54,7 @@ the same summed loads on every rank.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,7 +72,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_state_scan_ref
 from repro_torch.kernels.topk_gating import ops as gating_ops
 from repro_torch.kernels.topk_gating.ref import topk_gating_ref
-from repro_torch.models.param import spec
+from repro_torch.models.param import Rules, default_rules, spec
 from repro_torch.models.perf_flags import get_flags
 
 
@@ -83,9 +83,14 @@ class SpmdCtx:
     num_groups: int = 1        # token groups over all data-parallel ranks
     num_ep_shards: int = 1     # expert-parallel shards (link instances)
     group: Any = None          # the data-parallel ProcessGroup (None: one process)
-    ep_group: Any = None       # the model group the experts are sharded over
+    ep_group: Any = None       # the model group the parameters are sharded over
+    #: The rule table of the model group's layout (``param.default_rules()``
+    #: where None): which leaves a rank holds a slice of.
+    rules: Optional[Rules] = None
 
     def __post_init__(self):
+        if self.rules is None:
+            object.__setattr__(self, "rules", default_rules())
         if self.ep_group is not None and distributed.world_size(self.ep_group) != self.num_ep_shards:
             raise ValueError(
                 f"num_ep_shards={self.num_ep_shards} against a model group of "
@@ -230,6 +235,23 @@ def dispatch_plan(
     return order, slot_sorted, keep, src[:n_slots], filled[:n_slots]
 
 
+class ScatterByToken(torch.autograd.Function):
+    """``forward(rows, src, valid, T)`` → (T, d): row ``s`` added to token
+    ``src[s]`` where ``valid[s]`` (``dispatch_backward``'s segment sum, the
+    same bits from run to run); backward the gather of the gradient by
+    ``src``, an empty slot's row getting zero."""
+
+    @staticmethod
+    def forward(ctx, rows, src, valid, num_tokens):
+        ctx.save_for_backward(src, valid)
+        return dispatch_ops.dispatch_backward(rows, src, valid, num_tokens)
+
+    @staticmethod
+    def backward(ctx, dy):
+        src, valid = ctx.saved_tensors
+        return dispatch_gather_ref(dy, src, valid), None, None, None
+
+
 def moe_apply(
     p: Dict,
     x: torch.Tensor,                 # (B, S, d)
@@ -347,16 +369,18 @@ def moe_apply(
     y_local = torch.bmm(h, p["w_down"].to(x.dtype)).reshape(n_local, d)
 
     if get_flags().moe_scatter_combine:
-        # ---- H9 combine: weights placed on the slots, then one
-        # scatter-add of the weighted expert outputs by source token,
-        # partial on each rank and summed over the model group.
+        # ---- H9 combine: the weights placed on the slots (each kept pick
+        # owns its slot: a plain write, the drop column cut off), then the
+        # weighted expert outputs summed by source token, partial on each
+        # rank and summed over the model group.  The sum by token is
+        # ``dispatch_backward``'s deterministic segment sum (float32, one
+        # rounding), the transpose of the gather: no atomics, the same bits
+        # from run to run, and its gradient the gather of ``dy``.
         w_sorted = distributed.to_shard(gate_w, ep).reshape(-1)[order] * keep
         w_slot = torch.zeros(n_slots + 1, dtype=torch.float32, device=dev)
-        w_slot.index_add_(0, slot_sorted, w_sorted.to(torch.float32))
+        w_slot[slot_sorted] = w_sorted.to(torch.float32)
         contrib = y_local * w_slot[lo:lo + n_local, None].to(x.dtype)
-        y = torch.zeros((T, d), dtype=x.dtype, device=dev)
-        y.index_add_(0, src_l.to(torch.int64), contrib)
-        y = distributed.sum_shards(y, ep)
+        y = distributed.sum_shards(ScatterByToken.apply(contrib, src_l, valid_l, T), ep)
     else:
         # ---- Combine (unrolled over k to bound gather temporaries) ----- #
         y_flat = distributed.gather_shards(y_local, ep)    # (n_slots, d)

@@ -11,6 +11,13 @@ so carrying weights across from ``repro`` is one copy per leaf.  With
 ``torch.utils.checkpoint``, as ``repro`` wraps its scanned block in
 ``jax.checkpoint``: the backward recomputes the block, MoE link tick
 included, from the same inputs.
+
+Under a model group (``SpmdCtx.ep_group``) each layer holds what the rule
+table (``SpmdCtx.rules``) gives a rank and runs on its part, the residual
+stream replicated over the group between layers (the MoE layer's input
+too).  The logits are then the rank's vocabulary columns: ``lm_loss``
+reduces the max, the sum of exps and the gold logit over the group, and
+serving gathers only the last position's (``vocab_group``).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from repro_torch.models.layers import basic
 from repro_torch.models.layers.attention import (
     attention_apply,
     attention_specs,
+    kv_heads_of,
     mlp_apply,
     mlp_specs,
 )
@@ -44,7 +52,7 @@ from repro_torch.models.layers.moe import (
     moe_specs,
     moe_state_init,
 )
-from repro_torch.models.param import ParamSpec, spec, tree_map
+from repro_torch.models.param import ParamSpec, local_shape, spec, tree_map
 
 _DTYPES = {
     "float32": torch.float32,
@@ -155,16 +163,30 @@ def dyskew_states_init(cfg: ArchConfig, ctx: SpmdCtx, device: DeviceLike = None)
     return out
 
 
+def kv_heads_held(cfg: ArchConfig, ctx: SpmdCtx) -> int:
+    """The kv heads a rank's attention uses, and its KV cache holds, under
+    ``ctx``'s model group and rule table."""
+    if cfg.num_heads == 0:
+        return 0
+    M = ctx.num_ep_shards if ctx.ep_group is not None else 1
+    att = attention_specs(cfg)
+    heads = local_shape(att["wq"], M, ctx.rules)[1]
+    width = local_shape(att["wk"], M, ctx.rules)[1]
+    return kv_heads_of(cfg, heads, width, 0)[1]
+
+
 def decode_state_init(
     cfg: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype,
-    device: DeviceLike = None,
+    device: DeviceLike = None, ctx: SpmdCtx = SpmdCtx(),
 ) -> Dict:
     """KV caches + SSM states + position counter for decode.  With
     ``cfg.kv_cache_dtype == "int8"`` the caches hold int8 values and a
-    float32 scale per (block, batch, position, kv head)."""
+    float32 scale per (block, batch, position, kv head).  Under a model
+    group the caches hold the rank's kv heads and the SSM states its heads
+    (``kv_heads_held``, ``mamba_state_init``)."""
     dev = resolve_device(device)
     nb = num_blocks(cfg)
-    K, hd = cfg.num_kv_heads, cfg.head_dim_
+    K, hd = kv_heads_held(cfg, ctx), cfg.head_dim_
     int8 = cfg.kv_cache_dtype == "int8"
     kv_dt = torch.int8 if int8 else dtype
     out: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -178,7 +200,7 @@ def decode_state_init(
             entry["v_scale"] = torch.zeros((nb, batch, max_seq, K), dtype=torch.float32, device=dev)
         out[f"kv_l{j}"] = entry
     for j in mamba_layer_positions(cfg):
-        one = mamba_state_init(cfg, batch, dtype, dev)
+        one = mamba_state_init(cfg, batch, dtype, dev, ctx)
         out[f"ssm_l{j}"] = tree_map(
             lambda a: a.expand((nb,) + tuple(a.shape)).clone(), one
         )
@@ -199,6 +221,12 @@ def decode_position(decode_state: Dict) -> int:
 # ------------------------------------------------------------------ #
 # Forward pass
 # ------------------------------------------------------------------ #
+
+
+def vocab_group(params: Dict, cfg: ArchConfig, ctx: SpmdCtx) -> distributed.Group:
+    """The model group where ``params``' tables are sliced over it (the
+    rank's rows of the vocabulary), else None."""
+    return ctx.ep_group if params["embed"]["table"].shape[0] < cfg.padded_vocab else None
 
 
 def _apply_layer(
@@ -223,11 +251,12 @@ def _apply_layer(
     if "attn" in lp:
         attn_out, new_cache = attention_apply(
             lp["attn"], h, cfg=cfg, positions=positions,
-            cache=cache, cache_index=cache_index,
+            cache=cache, cache_index=cache_index, group=ctx.ep_group,
         )
         x = x + attn_out
     else:
-        mamba_out, new_ssm = mamba_apply(lp["mamba"], h, cfg=cfg, state=cache, scan=ops.scan)
+        mamba_out, new_ssm = mamba_apply(lp["mamba"], h, cfg=cfg, state=cache, scan=ops.scan,
+                                         group=ctx.ep_group)
         if cache is not None:
             # In place, as the KV caches: the stacked decode state keeps
             # its tensors.
@@ -254,7 +283,7 @@ def _apply_layer(
         x = x + moe_out
     elif "ffn" in lp:
         h = basic.norm_apply(lp["norm2"], x, cfg.norm)
-        x = x + mlp_apply(lp["ffn"], h, cfg)
+        x = x + mlp_apply(lp["ffn"], h, cfg, group=ctx.ep_group)
     return x, new_cache, new_moe_state
 
 
@@ -291,7 +320,9 @@ def forward(
     ops: DispatchOps = KERNEL_OPS,
 ) -> Tuple[torch.Tensor, Dict]:
     """Returns (logits (B,S,V), aux) where aux carries new dyskew states,
-    new decode state, and scalar metrics.
+    new decode state, and scalar metrics.  Under a model group whose
+    tables are sliced the logits are this rank's columns (B,S,V/M)
+    (``vocab_group``).
 
     MUTATES ``decode_state``: the KV caches and the SSM states are updated in
     place and the returned decode state holds the same tensors (with a new
@@ -305,8 +336,9 @@ def forward(
     B, S = tokens.shape
     dtype = model_dtype(cfg)
     dev = tokens.device
+    vocab = vocab_group(params, cfg, ctx)
 
-    x = basic.embed_apply(params["embed"], tokens, dtype)
+    x = basic.embed_apply(params["embed"], tokens, dtype, vocab)
     if prefix_embeds is not None:
         P = prefix_embeds.shape[1]
         if S < P:
@@ -374,7 +406,7 @@ def forward(
 
     x = basic.norm_apply(params["final_norm"], x, cfg.norm)
     head = params.get("lm_head", params["embed"])
-    logits = basic.logits_apply(head, x, cfg.vocab_size)
+    logits = basic.logits_apply(head, x, cfg.vocab_size, vocab)
 
     aux: Dict[str, Any] = {
         "metrics": {
@@ -397,21 +429,37 @@ def forward(
 
 
 def lm_loss(
-    logits: torch.Tensor,        # (B, S, V)
+    logits: torch.Tensor,        # (B, S, V) or this rank's (B, S, V/M)
     targets: torch.Tensor,       # (B, S) integer, -1 = masked
     z_loss: float = 1e-4,
     group: distributed.Group = None,
+    vocab: distributed.Group = None,
 ) -> torch.Tensor:
     """Masked next-token NLL plus ``z_loss``·lse², in float32, over the
     count of unmasked targets.  With a data-parallel ``group`` the rows are
     this rank's part of the global batch: the count is the global one, and
     the value is the global loss, of which this rank's gradient is its
-    share (``distributed.with_local_grad``)."""
+    share (``distributed.with_local_grad``).  With ``vocab`` (the model
+    group the logits' columns are sliced over) the max, the sum of exps and
+    the gold logit, (B, S) float32 each, are reduced over it: every rank
+    gets the same lse and loss, and the gradient of its own columns."""
     mask = (targets >= 0).to(torch.float32)
     tgt = torch.clamp(targets, min=0).to(torch.int64)
     logits32 = logits.to(torch.float32)
-    lse = torch.logsumexp(logits32, dim=-1)
-    gold = torch.gather(logits32, -1, tgt[..., None])[..., 0]
+    if vocab is None:
+        lse = torch.logsumexp(logits32, dim=-1)
+        gold = torch.gather(logits32, -1, tgt[..., None])[..., 0]
+    else:
+        cols = logits32.shape[-1]
+        # The max only shifts the exponent: lse does not depend on it.
+        top = distributed.all_max(logits32.detach().amax(dim=-1), vocab)
+        col = tgt - distributed.rank_of(vocab) * cols
+        mine = (col >= 0) & (col < cols)
+        gold_part = torch.gather(logits32, -1, col.clamp(0, cols - 1)[..., None])[..., 0]
+        sums = distributed.sum_shards(torch.stack([
+            torch.exp(logits32 - top[..., None]).sum(dim=-1), torch.where(mine, gold_part, 0.0)]), vocab)
+        lse = top + torch.log(sums[0])
+        gold = sums[1]
     nll = (lse - gold) * mask
     zl = z_loss * torch.square(lse) * mask
     if group is None:

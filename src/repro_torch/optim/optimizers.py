@@ -6,12 +6,15 @@ tensors), and an update writes each parameter back in its own dtype, as
 ``repro.optim.optimizers`` does: there is no float32 master copy.  Every
 function here works on values, under ``torch.no_grad``.
 
-Under a model group (``Shards``) an expert leaf holds this rank's slice
-of the whole leaf.  What reads a whole leaf sums its slices over the group:
-the global norm (one ``all_reduce`` of the expert leaves' sums of squares;
-the replicated leaves are counted once, as every rank holds them whole)
-and Adafactor's update RMS (one ``all_reduce`` an expert leaf).  AdamW is
-element-wise and needs nothing.
+Under a model group (``Shards``) a sliced leaf holds this rank's slice
+of the whole leaf along one axis.  What reads a whole leaf sums its slices
+over the group: the global norm (one ``all_reduce`` of the sliced leaves'
+sums of squares; the replicated leaves are counted once, as every rank
+holds them whole) and Adafactor's update RMS (one ``all_reduce`` a sliced
+leaf).  Adafactor factors over the last two dims of the WHOLE leaf (and
+decides ``_factored`` on its whole shape): where the sliced axis is one of
+them, the row and column means across it are summed over the group.
+AdamW is element-wise and needs nothing.
 """
 
 from __future__ import annotations
@@ -77,18 +80,35 @@ def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Shards:
     """The parameter leaves sliced over a model group: ``leaves`` is a tree
-    of bools at the parameters' leaves (True: this rank holds a slice),
-    ``group`` the model group."""
+    at the parameters' leaves of the axis a rank holds a slice of (None:
+    the leaf is whole on every rank), ``group`` the model group."""
 
     leaves: Any
     group: Any
+
+    @property
+    def size(self) -> int:
+        return distributed.world_size(self.group)
+
+
+def _slices(params: Any, shards: Optional[Shards]) -> Any:
+    """The sliced axis at each parameter leaf (None everywhere without
+    ``shards``)."""
+    return shards.leaves if shards is not None else zip_map(lambda p: None, params)
+
+
+def _whole_shape(p: torch.Tensor, axis: Optional[int], shards: Optional[Shards]) -> Tuple[int, ...]:
+    shape = tuple(p.shape)
+    if axis is None:
+        return shape
+    return shape[:axis] + (shape[axis] * shards.size,) + shape[axis + 1:]
 
 
 def global_norm(tree: Any, shards: Optional[Shards] = None) -> torch.Tensor:
     """The norm of the whole tree, the leaves added in tree order."""
     sq = [torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(tree)]
     if shards is not None:
-        mine = [i for i, sliced in enumerate(tree_leaves(shards.leaves)) if sliced]
+        mine = [i for i, axis in enumerate(tree_leaves(shards.leaves)) if axis is not None]
         if mine:
             summed = distributed.all_sum(torch.stack([sq[i] for i in mine]), shards.group)
             for j, i in enumerate(mine):
@@ -142,17 +162,17 @@ def _factored(shape: Tuple[int, ...], threshold: int) -> bool:
     return len(shape) >= 2 and shape[-1] >= threshold and shape[-2] >= threshold
 
 
-def adafactor_init(params: Any, cfg: OptimizerConfig) -> Dict:
-    def init_one(p):
+def adafactor_init(params: Any, cfg: OptimizerConfig, shards: Optional[Shards] = None) -> Dict:
+    def init_one(p, axis):
         shape, dev = tuple(p.shape), p.device
-        if _factored(shape, cfg.factored_dim_threshold):
+        if _factored(_whole_shape(p, axis, shards), cfg.factored_dim_threshold):
             return {
                 "vr": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),   # row
                 "vc": torch.zeros(shape[:-2] + shape[-1:], dtype=torch.float32, device=dev),
             }
         return {"v": torch.zeros(shape, dtype=torch.float32, device=dev)}
 
-    return {"v": zip_map(init_one, params)}
+    return {"v": zip_map(init_one, params, _slices(params, shards))}
 
 
 def adafactor_update(
@@ -162,21 +182,23 @@ def adafactor_update(
     lr = lr_schedule(cfg, step)
     t = step.to(torch.float32) + 1.0
     decay = 1.0 - torch.pow(t, -0.8)
-    sliced = shards.leaves if shards is not None else zip_map(lambda p: False, params)
 
-    def mean_square(u, whole):
-        if whole:
-            return torch.mean(torch.square(u))
-        # A slice: the whole leaf's sum over its element count.
-        total = distributed.all_sum(torch.sum(torch.square(u)), shards.group)
-        return total / float(u.numel() * distributed.world_size(shards.group))
+    def mean(x, dim, across):
+        """The mean over ``dim`` (None: all of ``x``); over the whole
+        leaf's (the ranks' slices summed) where ``across``."""
+        if not across:
+            return torch.mean(x) if dim is None else torch.mean(x, dim=dim)
+        total = distributed.all_sum(torch.sum(x) if dim is None else torch.sum(x, dim=dim), shards.group)
+        count = x.numel() if dim is None else x.shape[dim]
+        return total / float(count * shards.size)
 
-    def upd(p, g, v, part):
+    def upd(p, g, v, axis):
         g32 = torch.square(g.to(torch.float32)) + 1e-30
+        last = g.ndim - 1
         if "vr" in v:
-            vr = decay * v["vr"] + (1 - decay) * torch.mean(g32, dim=-1)
-            vc = decay * v["vc"] + (1 - decay) * torch.mean(g32, dim=-2)
-            rfac = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=1e-30)
+            vr = decay * v["vr"] + (1 - decay) * mean(g32, -1, axis == last)
+            vc = decay * v["vc"] + (1 - decay) * mean(g32, -2, axis == last - 1)
+            rfac = vr / torch.clamp(mean(vr, -1, axis == last - 1)[..., None], min=1e-30)
             precond = torch.rsqrt(torch.clamp(rfac[..., None] * vc[..., None, :], min=1e-30))
             new_v = {"vr": vr, "vc": vc}
         else:
@@ -185,13 +207,13 @@ def adafactor_update(
             new_v = {"v": vv}
         u = g.to(torch.float32) * precond
         # Update clipping (RMS <= 1), per Adafactor.
-        rms = torch.sqrt(mean_square(u, not part) + 1e-30)
+        rms = torch.sqrt(mean(torch.square(u), None, axis is not None) + 1e-30)
         u = u / torch.clamp(rms, min=1.0)
         p32 = p.to(torch.float32)
         delta = u + cfg.weight_decay * p32
         return (p32 - lr * delta).to(p.dtype), new_v
 
-    out = zip_map(upd, params, grads, state["v"], sliced)
+    out = zip_map(upd, params, grads, state["v"], _slices(params, shards))
     new_p, new_v = unzip(out, params, 2)
     return new_p, {"v": new_v}
 
@@ -199,11 +221,11 @@ def adafactor_update(
 # ---------------------------- unified --------------------------------- #
 
 
-def opt_init(cfg: OptimizerConfig, params: Any) -> Dict:
+def opt_init(cfg: OptimizerConfig, params: Any, shards: Optional[Shards] = None) -> Dict:
     if cfg.name == "adamw":
         return adamw_init(params)
     if cfg.name == "adafactor":
-        return adafactor_init(params, cfg)
+        return adafactor_init(params, cfg, shards)
     if cfg.name == "sgd":
         return {}
     raise ValueError(cfg.name)

@@ -9,10 +9,11 @@ On a (data D, model M) mesh (``launch/mesh.py::init_ranks``) every rank
 runs the same seeded ``DataPipeline`` and takes the rows ``[d·B/D,
 (d+1)·B/D)`` of each global batch by its DATA index d, one token group a
 data rank, so the M ranks of a model group hold the same tokens and each
-its slice of the experts (``num_ep_shards`` = M); the metrics are the
-global ones on every rank, and only rank 0 calls ``on_metrics`` and writes
-the checkpoint's replicated state (the expert leaves gathered over its
-model group).
+its slice of what ``repro``'s ``default_rules`` shard over ``model``
+(experts, heads, kv heads, the ffn's width, the vocabulary, Mamba's heads;
+``num_ep_shards`` = M); the metrics are the global ones on every rank, and
+only rank 0 calls ``on_metrics`` and writes the checkpoint's replicated
+state (the sliced leaves gathered over its model group).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.layers.moe import SpmdCtx
 from repro_torch.models.model_api import build
-from repro_torch.models.param import expert_axes
+from repro_torch.models.param import shard_axes
 from repro_torch.optim.optimizers import OptimizerConfig
 from repro_torch.train.step import StepConfig, make_train_step, train_state_init, train_state_specs
 
@@ -70,7 +71,7 @@ def train(
     start_step = 0
     if loop_cfg.checkpoint_dir:
         ckpt = CheckpointManager(loop_cfg.checkpoint_dir, group=mesh.group, ep_group=mesh.ep_group,
-                                 experts=expert_axes(train_state_specs(model, opt_cfg)))
+                                 shards=shard_axes(train_state_specs(model, opt_cfg), shards, ctx.rules))
         if ckpt.latest_step() is not None:
             state = ckpt.restore(state)
             start_step = int(state["step"])

@@ -9,11 +9,12 @@ each call runs eagerly on the device its tensors live on.
 
 With a data-parallel group (``SpmdCtx.group``) each rank's batch is its
 rows of the global batch.  With a model group (``SpmdCtx.ep_group``, the
-ranks holding the same rows) each rank holds its slice of every expert
-leaf: the gradients of all leaves, expert and replicated, are summed over
-the data group only (the model group's ranks already hold equal gradients
-of the replicated leaves), and the optimizer sums what reads a whole leaf
-over the model group (``optimizers.Shards``).  Each rank's loss has the global value and its
+ranks holding the same rows) each rank holds its slice of every leaf that
+the rule table (``SpmdCtx.rules``) slices: the gradients of all leaves,
+sliced and replicated, are summed over the data group only (the model
+group's ranks already hold equal gradients of the replicated leaves, the
+layers' ``to_shard`` having summed their parts), and the optimizer sums
+what reads a whole leaf over the model group (``optimizers.Shards``).  Each rank's loss has the global value and its
 share of the global gradient (global denominators, in every microbatch), so
 the SUM of the ranks' gradients is the gradient of ``repro``'s loss on the
 global batch: the plain reduction sums each leaf in float32 (one
@@ -24,7 +25,7 @@ global batch: the plain reduction sums each leaf in float32 (one
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +35,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.ordered_sums import div
 from repro_torch.models.layers.moe import KERNEL_OPS, DispatchOps, SpmdCtx
 from repro_torch.models.model_api import Model
-from repro_torch.models.param import expert_axis, tree_leaves, tree_map
+from repro_torch.models.param import model_axis, tree_leaves, tree_map
 from repro_torch.optim.grad_compress import allreduce_compressed, residual_init
 from repro_torch.optim.optimizers import OptimizerConfig, Shards, opt_init, opt_update, zip_map
 from repro_torch.optim.specs import opt_state_specs
@@ -48,19 +49,28 @@ class StepConfig:
     grad_compression: bool = False
 
 
+def model_shards(model: Model, ctx: SpmdCtx) -> Optional[Shards]:
+    """The parameter leaves ``ctx``'s rule table slices over its model
+    group, with their axes (None without a group)."""
+    if ctx.ep_group is None:
+        return None
+    M = distributed.world_size(ctx.ep_group)
+    return Shards(tree_map(lambda p: model_axis(p, M, ctx.rules), model.specs()), ctx.ep_group)
+
+
 def train_state_init(
     model: Model, opt_cfg: OptimizerConfig, generator: torch.Generator,
     ctx: SpmdCtx = SpmdCtx(), device: DeviceLike = None,
 ) -> Dict:
     """Params drawn from ``generator`` (on its own device) and put on
-    ``device``, each expert leaf this rank's shard of it under a model
-    group (``ctx.ep_group``); zero optimizer state, step 0 and fresh link
+    ``device``, each leaf that ``ctx.rules`` slices this rank's slice of it
+    under a model group (``ctx.ep_group``); zero optimizer state, step 0 and fresh link
     states."""
     params = model.init(generator, device=device, ctx=ctx)
     dev = resolve_device(device)
     state = {
         "params": params,
-        "opt": opt_init(opt_cfg, params),
+        "opt": opt_init(opt_cfg, params, model_shards(model, ctx)),
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
     dk = model.dyskew_init(ctx, dev)
@@ -126,9 +136,7 @@ def make_train_step(
             "ROADMAP.md queue A, 'allreduce_compressed'"
         )
     world = distributed.world_size(group)
-    shards = None
-    if ctx.ep_group is not None:
-        shards = Shards(tree_map(lambda p: expert_axis(p) is not None, model.specs()), ctx.ep_group)
+    shards = model_shards(model, ctx)
 
     grad_fn = make_grad_fn(model, ctx)
 
@@ -193,6 +201,9 @@ def make_train_step(
 
 
 def make_prefill_step(model: Model, ctx: SpmdCtx = SpmdCtx()):
+    """prefill_step(params, state, inputs) -> (the last position's logits
+    (B, 1, V), new state)."""
+
     def prefill_step(params, state, inputs):
         logits, new_state = model.prefill(params, inputs, state, ctx=ctx)
         return logits[:, -1:], new_state

@@ -74,7 +74,7 @@ from repro_torch.launch.mesh import run_ranks
 from repro_torch.models import transformer as t_transformer
 from repro_torch.models.layers import moe as tmoe
 from repro_torch.models.model_api import build as t_build
-from repro_torch.models.param import expert_axes, expert_shard, slice_experts
+from repro_torch.models.param import expert_axes, expert_rules, expert_shard, slice_shards
 from repro_torch.optim.optimizers import OptimizerConfig
 from repro_torch.roofline import analysis as t_analysis
 from repro_torch.train.step import train_state_init, train_state_specs
@@ -389,7 +389,10 @@ def test_loss_and_every_gradient_leaf(granite, meshes, mesh):
 # --------------------------------------------------------------------- #
 
 
-def _assert_train_state(jflat, flat, axes, m, model, lr_sum, where):
+def _assert_train_state(jflat, flat, axes, m, model, lr_sum, where, noise_cap=0.05):
+    """``noise_cap``: the largest share of a leaf whose second moment may be
+    at rounding (None: any share, each such element still within
+    ``2 · lr_sum``)."""
     assert sorted(flat) == sorted(jflat), where
     for key, a in jflat.items():
         a = _slice(a, key, axes, m, model)
@@ -402,7 +405,7 @@ def _assert_train_state(jflat, flat, axes, m, model, lr_sum, where):
         elif key.startswith("params/") and "opt/v/" + key[len("params/"):] in jflat:
             v = _slice(jflat["opt/v/" + key[len("params/"):]], "opt/v/" + key[len("params/"):], axes, m, model)
             noise = (v > 0) & (v <= NOISE_FLOOR * v.max())
-            assert noise.mean() <= 0.05, (where, key, noise.mean())
+            assert noise_cap is None or noise.mean() <= noise_cap, (where, key, noise.mean())
             diff = np.abs(a - b)
             assert diff[~noise].max() <= 1e-5 * np.abs(a).max(), (where, key)
             assert diff[noise].max(initial=0.0) <= 2 * lr_sum, (where, key)
@@ -565,7 +568,7 @@ def test_collectives_are_counted(granite, mesh_1x4):
     cfg = _cfg(t_get_config)
     part = job["counted"]
     tokens = ROWS * SEQ
-    params = slice_experts(part["state"]["params"], expert_axes(t_build(cfg).specs()), 0, 4)
+    params = slice_shards(part["state"]["params"], expert_axes(t_build(cfg).specs()), 0, 4)
     want = {"train": _issued(cfg, (1, 4), 1, tokens, params, True),
             "prefill": _issued(cfg, (1, 4), 1, tokens, params, False)}
     for r, rank in enumerate(res):
@@ -603,8 +606,8 @@ def test_what_raises(mesh_1x2):
 
 
 def test_a_rank_holds_its_slice_of_the_init():
-    """A rank's init under a model group is the slice of the one-process
-    init at the same seed, leaf by leaf; the router stays whole."""
+    """A rank's init under a model group (the experts-only layout) is the slice of the one-process init at the same seed, leaf by
+    leaf; the router stays whole."""
     from repro_torch.models.param import tree_materialize
 
     model = t_build(_cfg(t_get_config))
@@ -613,7 +616,8 @@ def test_a_rank_holds_its_slice_of_the_init():
     axes = expert_axes(specs)
     assert sorted(axes) == [f"blocks/l0/moe/{w}" for w in ("w_down", "w_gate", "w_up")]
     for m in range(4):
-        mine = tree_materialize(specs, torch.Generator().manual_seed(3), device=CPU, shard=(m, 4))
-        want = slice_experts(whole, axes, m, 4)
+        mine = tree_materialize(specs, torch.Generator().manual_seed(3), device=CPU, shard=(m, 4),
+                                rules=expert_rules())
+        want = slice_shards(whole, axes, m, 4)
         for (key, a), (_, b) in zip(flatten_with_paths(want), flatten_with_paths(mine)):
             assert torch.equal(a, b) and b.is_contiguous(), (m, key)

@@ -224,3 +224,66 @@ def test_state_from_numpy_keeps_types():
     assert ts["ema_loads"].dtype == torch.float32
     bf = state_from_numpy({"k": np.asarray(jnp.ones((2, 3), jnp.bfloat16))}, device="cpu")
     assert bf["k"].dtype == torch.bfloat16 and float(bf["k"].sum()) == 6.0
+
+
+class _FloatScatterAdds(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records each floating-point scatter-add the code under it runs
+    (``index_add``, ``scatter_add``, ``index_put`` with accumulate): the
+    ops that CUDA runs with atomic adds."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        accumulate = name.startswith("index_put") and (kwargs.get("accumulate") or (len(args) > 3 and args[3]))
+        if (name.startswith(("index_add", "scatter_add")) or accumulate) and args[0].is_floating_point():
+            self.seen.append((name, tuple(args[0].shape)))
+        return func(*args, **kwargs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_scatter_combine_is_deterministic(dtype):
+    """H9's combine sums by token with ``dispatch_backward``'s segment sum:
+    two passes give the same bits, forward and backward, with no float
+    scatter-add of rows in the forward (the backward's index gradients
+    write each element once: ``order`` is a permutation); in float32 it
+    still matches the reference's H9: ``y`` at rtol/atol 1e-5, the
+    gradients of ``x`` and of every leaf within 1e-5 of their largest
+    element."""
+    jcfg, tcfg = _cfgs(True)
+    p_np = _numpy_params(0.8)
+    x_np = np.random.default_rng(7).standard_normal((B, S, D)).astype(np.float32)
+    dy_np = np.random.default_rng(8).standard_normal((B, S, D)).astype(np.float32)
+    tctx = tmoe.SpmdCtx(num_groups=1, num_ep_shards=N_EP)
+
+    def port():
+        tp = {k: v.requires_grad_(True) for k, v in params_from_numpy(p_np, device="cpu", dtype=dtype).items()}
+        x = torch.from_numpy(x_np).to(dtype).requires_grad_(True)
+        with t_use_flags(TFlags(moe_scatter_combine=True)), _FloatScatterAdds() as mode:
+            y, _, _ = tmoe.moe_apply(tp, x, cfg=tcfg, state=tmoe.moe_state_init(tcfg, tctx, device="cpu"), ctx=tctx)
+        grads = torch.autograd.grad(y, [x] + [tp[k] for k in sorted(tp)], torch.from_numpy(dy_np).to(dtype))
+        return [y.detach()] + list(grads), mode.seen
+
+    first, seen = port()
+    second, _ = port()
+    # The only one: the plain histogram's counts (whole numbers, exact in
+    # any order; the card runs the histogram kernel).
+    assert seen == [("index_put_", (E,))], seen
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    if dtype != torch.float32:
+        return
+    jctx = jmoe.SpmdCtx(num_groups=1, num_ep_shards=N_EP)
+    jp = {k: jnp.asarray(v) for k, v in p_np.items()}
+    with j_use_flags(JFlags(moe_scatter_combine=True)):
+        def f(x, p):
+            return jmoe.moe_apply(p, x, cfg=jcfg, state=jmoe.moe_state_init(jcfg, jctx), ctx=jctx)[0]
+        jy, vjp = jax.vjp(f, jnp.asarray(x_np), jp)
+        jdx, jdp = vjp(jnp.asarray(dy_np))
+    np.testing.assert_allclose(first[0].numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
+    for i, (a, b) in enumerate(zip([jdx] + [jdp[k] for k in sorted(jdp)], first[1:])):
+        a = np.asarray(a)
+        assert np.abs(b.numpy() - a).max() <= 1e-5 * np.abs(a).max(), i

@@ -5,7 +5,9 @@ the CPU, started through ``run_rank`` by
 module imports torch and the port only (no JAX), so a rank starts
 quickly; results go back through a queue as numpy arrays.  Every rank gets
 the reference's whole parameters and state as numpy arrays and keeps its
-slice of the expert leaves (``param.slice_experts``)."""
+slice of the expert leaves (``param.slice_shards``): the ranks run the
+experts-only layout (``param.expert_rules``); the whole rule table
+is ``tests/torch_tp_worker.py``'s."""
 
 from __future__ import annotations
 
@@ -41,16 +43,18 @@ def run_rank(rank: int, world: int, init_method: str, model: int, job: Dict) -> 
 
 def _ctx(mesh, groups):
     from repro_torch.models.layers.moe import SpmdCtx
+    from repro_torch.models.param import expert_rules
 
-    return SpmdCtx(num_groups=groups, num_ep_shards=mesh.shape["model"], group=mesh.group, ep_group=mesh.ep_group)
+    return SpmdCtx(num_groups=groups, num_ep_shards=mesh.shape["model"], group=mesh.group, ep_group=mesh.ep_group,
+                   rules=expert_rules())
 
 
 def _sliced(mesh, tree, specs):
     """The whole numpy ``tree`` (keyed as the spec tree ``specs``) cut to
     this rank's experts."""
-    from repro_torch.models.param import expert_axes, slice_experts
+    from repro_torch.models.param import expert_axes, slice_shards
 
-    return slice_experts(tree, expert_axes(specs), mesh.model_rank, mesh.shape["model"])
+    return slice_shards(tree, expert_axes(specs), mesh.model_rank, mesh.shape["model"])
 
 
 def _rows(tree: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
@@ -223,7 +227,7 @@ def save_checkpoint(mesh, job):
     model, opt, state = _train_setup(mesh, job, ctx)
     state, _ = make_train_step(model, opt, ctx=ctx)(state, _rows(job["batch"], mesh))
     mgr = CheckpointManager(job["dir"], group=mesh.group, ep_group=mesh.ep_group,
-                            experts=expert_axes(train_state_specs(model, opt)))
+                            shards=expert_axes(train_state_specs(model, opt)))
     mgr.save(1, state, blocking=True)
     torch.distributed.barrier()
     return {"saved": flat_numpy(state), "restored": flat_numpy(mgr.restore(state))}
@@ -247,9 +251,10 @@ def restore_checkpoint(mesh, job):
     ctx = _ctx(mesh, job["groups"])
     like = train_state_init(model, opt, torch.Generator().manual_seed(5), ctx, "cpu")
     out = {"restored": flat_numpy(CheckpointManager(job["dir"], group=mesh.group, ep_group=mesh.ep_group,
-                                                    experts=axes).restore(like))}
+                                                    shards=axes).restore(like))}
     if job.get("as_data_only"):
-        whole = SpmdCtx(num_groups=job["groups"], num_ep_shards=mesh.shape["model"], group=mesh.group)
+        whole = SpmdCtx(num_groups=job["groups"], num_ep_shards=mesh.shape["model"], group=mesh.group,
+                        rules=ctx.rules)
         like = train_state_init(model, opt, torch.Generator().manual_seed(5), whole, "cpu")
         out["data_only"] = flat_numpy(CheckpointManager(job["dir"], group=mesh.group).restore(like))
     return out
