@@ -67,7 +67,7 @@ served (8 × 1024 prefill, 32 greedy decode steps, both combines) on a
 one-rank NCCL mesh whose model group of one runs the model group's
 collectives, the same bits as no group with either combine (its two train
 steps are ``ranks``' loop on that mesh); then four gloo ranks sharing the
-card as (data 1, model 4) under the reference's layout (``default_rules``:
+card as (data 1, model 4) under the reference's layout less FSDP (``model_rules``:
 a quarter of the experts, heads, ffn width, vocabulary and Mamba heads a
 rank), serving granite (both combines, H9 twice: the same bits),
 starcoder2-3b and mamba2-1.3b at full width and depth (the last two 8
@@ -76,14 +76,27 @@ output of the layer before, within four bf16 roundings (MoE rows whose
 router picks other experts only at near ties), the same bits on every rank,
 the full-depth logits against one process's a reading (a random model's
 rounding cascades through the layers); and training granite in float32 at
-the depth reckoned from the free card (loss and ``grad_norm`` within 1e-3);
+the depth reckoned from the free card, at most EP_MAX_LAYERS (loss and ``grad_norm`` within 1e-3);
 then the experts-only layout at 2 layers, served with the
 default combine bit for bit and trained; and the model
 group's collectives of each prefill and train step, as the op counter
 records them, against what they issue, with ``t_collective``.
 
+``fsdp`` checks FSDP of ``embed`` over the data group under the
+reference's whole table (``default_rules``): granite served (8 × 1024
+prefill, 32 decode steps) and trained one float32 step on a one-rank NCCL
+mesh with data and model groups of one, the same bits as no group; four
+gloo ranks sharing the card as (data 4, model 1), granite served at 12
+of its 24 layers (each rank its 2 prompts, 8 decode steps) and trained at
+FSDP_LAYERS, then as (data 2, model 2), granite trained (and with H2: the
+gathers at half the bytes) and mamba2-1.3b served at 24 of its 48 layers, each held to one process (every layer from
+one process's input within LAYER_TOL, loss and ``grad_norm`` within 1e-3,
+link states the same bits, each parameter within 2 · lr) and each step's
+gathers and reduce-scatters held to what it issues (``fsdp_issued``).
+
 Last, ``roofline`` runs the dry-run (``launch/dryrun.py``: every cell of
-the six configs served or trained, counted on ``meta`` tensors) and counts
+the six configs served or trained on one card, and POD_CELLS on a pod's
+rank in a process of their own, counted on ``meta`` tensors) and counts
 six steps at full width with ``roofline/op_cost.py``, once on the card and
 once on ``meta``, where the counts must be equal and each kernel's records
 must equal its launches: granite's and mamba2's prefill of 8 x 1024, one
@@ -121,6 +134,13 @@ Standard output is one JSON object per line:
                                  ranks at (data 1, model 4), the reference's layout and the
                                  experts alone, served and trained against one process;
                                  the model group's collectives; launches, seconds
+    {"phase": "fsdp_depth"}      the fsdp phase's train depth and parameters a rank
+    {"phase": "fsdp_readings"}   the ranks' readings, printed before the checks
+    {"phase": "fsdp", ...}       one NCCL rank against no group; four gloo ranks at (4, 1)
+                                 and (2, 2), with H2, against one process; records,
+                                 wire bytes, t_collective, seconds
+    {"phase": "roofline_pod_cell"}  a pod rank's cell (on meta, a fake process group):
+                                 per-rank peak GB, fits_hbm, t_collective, records
     {"phase": "roofline_cell"}   the dry-run of each cell of the six configs served or
                                  trained (launch/dryrun.py, on meta): status, counts,
                                  roofline terms, peak GB, fits_hbm
@@ -3273,7 +3293,7 @@ def phase_ranks(torch, card="cuda"):
 # --------------------------------------------------------------------- #
 
 #: (b): the ranks of a (data 1, model EP_MODEL) mesh, sharing the one card
-#: over gloo.  Under the reference's layout (``param.default_rules``) a rank
+#: over gloo.  Under the reference's layout less FSDP (``param.model_rules``) a rank
 #: holds a quarter of granite's experts, attention heads and vocabulary, of
 #: starcoder2-3b's query heads (its 2 kv heads stay whole: a rank uses the
 #: one its query heads read) and ffn, of mamba2-1.3b's heads.
@@ -3298,6 +3318,10 @@ EP_BACKWARD_BYTES_PER_PARAM = 14
 EP_ACTIVATION_BYTES = 8 * 10 ** 9
 EP_CARD_SHARE = 0.85
 EP_MIN_LAYERS = 6
+#: The most layers (b) trains: 24 fit, but a float32 step at 24 layers took
+#: 45.5-57.6 s a rank through gloo (PERF.md §6), and with the fsdp
+#: phase the script would near its time limit, so the depth is cut.
+EP_MAX_LAYERS = 8
 #: The experts-only layout (``param.expert_rules``), kept as an
 #: earlier path at this depth, to keep the script's time: served with the
 #: default combine (held to one process bit for bit) and trained.
@@ -3349,16 +3373,17 @@ EP_SERVE_RTOL = 2e-2
 EP_SERVE_ATOL = 2e-2
 
 
-def ep_rank_params(cfg, rules, model=EP_MODEL):
-    """The parameters a rank of a model axis of ``model`` holds under
-    ``rules``, reckoned from the specs."""
+def ep_rank_params(cfg, rules, model=EP_MODEL, mesh=None):
+    """The parameters a rank of a model axis of ``model`` (or of ``mesh``)
+    holds under ``rules``, reckoned from the specs."""
     import math
 
     from repro_torch.checkpoint.manager import flatten_with_paths
     from repro_torch.models.model_api import build
     from repro_torch.models.param import local_shape
 
-    return sum(math.prod(local_shape(p, model, rules)) for _, p in flatten_with_paths(build(cfg).specs()))
+    mesh = {"model": model} if mesh is None else mesh
+    return sum(math.prod(local_shape(p, mesh, rules)) for _, p in flatten_with_paths(build(cfg).specs()))
 
 
 def ep_train_layers(torch, free):
@@ -3367,19 +3392,20 @@ def ep_train_layers(torch, free):
     (layers, the reckoning)."""
     import dataclasses
 
-    from repro_torch.models.param import default_rules
+    from repro_torch.models.param import model_rules
 
     cfg = ranks_config()
     budget = EP_CARD_SHARE * free / EP_MODEL
     table = {}
     for layers in range(1, cfg.num_layers + 1):
-        held = ep_rank_params(dataclasses.replace(cfg, num_layers=layers), default_rules())
+        held = ep_rank_params(dataclasses.replace(cfg, num_layers=layers), model_rules())
         table[layers] = {"params_a_rank": held, "bytes_a_rank": max(
             EP_UPDATE_BYTES_PER_PARAM * held, EP_BACKWARD_BYTES_PER_PARAM * held + EP_ACTIVATION_BYTES)}
     fits = [n for n, t in table.items() if t["bytes_a_rank"] <= budget]
-    layers = max(fits + [EP_MIN_LAYERS])
+    layers = min(max(fits + [EP_MIN_LAYERS]), EP_MAX_LAYERS)
     return layers, {"layers": layers, "budget_a_rank": budget, "card_free": free,
                     "at_depth": table[layers], "all_layers": table[cfg.num_layers],
+                    "fit": max(fits + [EP_MIN_LAYERS]), "cut_to": EP_MAX_LAYERS,
                     "update_bytes_per_param": EP_UPDATE_BYTES_PER_PARAM,
                     "backward_bytes_per_param": EP_BACKWARD_BYTES_PER_PARAM,
                     "activation_bytes": EP_ACTIVATION_BYTES}
@@ -3427,7 +3453,7 @@ def ep_served_passes(torch, served, forced=None, combines=(False, True), steps=D
     return out
 
 
-def layer_outputs(torch, served, teacher=None):
+def layer_outputs(torch, served, teacher=None, prompts=LAYER_PROMPTS):
     """Every layer of ``served`` on its prompts, as ``transformer.forward``
     runs a prefill under the served context: the embedding's output, each
     layer's output (the residual stream after its mixer and ffn) and a MoE
@@ -3438,10 +3464,11 @@ def layer_outputs(torch, served, teacher=None):
     drops nothing (``capacity_factor`` E/k: at the served one a near-tied
     pick that flips moves which other tokens an expert keeps) and through
     H9 (an all_reduce of the tokens' width, where the default combine
-    all-gathers the whole buffer).  The first LAYER_PROMPTS prompts."""
+    all-gathers the whole buffer).  The first ``prompts`` prompts, each
+    block's leaves gathered whole over the data axes first (FSDP)."""
     import dataclasses
 
-    from repro_torch.models import transformer
+    from repro_torch.models import fsdp, transformer
     from repro_torch.models.layers import basic
     from repro_torch.models.layers.attention import attention_apply, mlp_apply
     from repro_torch.models.layers.mamba2 import mamba_apply
@@ -3453,14 +3480,16 @@ def layer_outputs(torch, served, teacher=None):
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts
                                                                / cfg.moe.top_k))
-    tokens = inputs["tokens"][:LAYER_PROMPTS]
+    tokens = inputs["tokens"][:prompts]
     positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
-    x = basic.embed_apply(params["embed"], tokens, transformer.model_dtype(cfg),
+    plan = fsdp.plan(transformer.model_specs(cfg), ctx)
+    block_plan = fsdp.unstacked(plan["blocks"])
+    x = basic.embed_apply(fsdp.gather(params["embed"], plan["embed"], ctx), tokens, transformer.model_dtype(cfg),
                           transformer.vocab_group(params, cfg, ctx))
     out = {"embed": x.cpu(), "layers": [], "router": []}
     with use_flags(PerfFlags(moe_scatter_combine=True)):
         for b in range(transformer.num_blocks(cfg)):
-            bp = transformer._take_block(params["blocks"], b)
+            bp = fsdp.gather(transformer._take_block(params["blocks"], b), block_plan, ctx)
             for j in range(transformer.block_period(cfg)):
                 i = len(out["layers"])
                 if teacher is not None:
@@ -3535,11 +3564,12 @@ def served_against(torch, logits, toks, ref):
             "checksum": float(logits.double().sum()), "tokens_checksum": int(toks.long().sum())}
 
 
-def ep_train(torch, card, layers, ctx, batches, specs=None):
-    """RANKS_STEPS AdamW steps of granite cut to ``layers`` in float32 at
-    ``ctx`` on the whole global batch, the first under the op counter:
-    (state, losses, grad norms, ms, records, launches).  ``specs``: the
-    whole leaves' specs, for a rank's slices (``at_input_fan_in``)."""
+def ep_train(torch, card, layers, ctx, batches, specs=None, start_step=0):
+    """An AdamW step of granite cut to ``layers`` in float32 at ``ctx`` on
+    each of ``batches``, the first under the op counter: (state, losses,
+    grad norms, ms, records, launches).  ``specs``: the whole leaves'
+    specs, for a rank's slices (``at_input_fan_in``); ``start_step``: the
+    schedule's step of the first (at 0 the warm-up's lr is 0)."""
     from repro_torch import kernels
     from repro_torch.models.model_api import build
     from repro_torch.optim.optimizers import OptimizerConfig
@@ -3550,6 +3580,7 @@ def ep_train(torch, card, layers, ctx, batches, specs=None):
     model = build(cfg)
     opt_cfg = OptimizerConfig(name=cfg.optimizer, warmup_steps=1, total_steps=TRAIN_STEPS)
     state = train_state_init(model, opt_cfg, torch.Generator(device="cuda").manual_seed(0), ctx, card)
+    state["step"].fill_(start_step)
     at_input_fan_in(state["params"], specs)
     step = make_train_step(model, opt_cfg, ctx=ctx)
     run = {"loss": [], "grad_norm": [], "ms": []}
@@ -3589,8 +3620,8 @@ def ep_rank_train(torch, card, layers, ctx, where, name, mesh):
     state, run = ep_train(torch, card, layers, ctx, batches, specs)
     run["peak_memory_bytes"] = torch.cuda.max_memory_allocated(card)
     run["dyskew"] = {k: v.cpu().numpy() for k, v in flatten_with_paths(state["dyskew"])}
-    axes = shard_axes(specs, EP_MODEL, ctx.rules)
-    want_p = slice_shards(ref_params, axes, mesh.model_rank, EP_MODEL)
+    axes = shard_axes(specs, ctx.mesh, ctx.rules)
+    want_p = slice_shards(ref_params, axes, ctx.mesh, ctx.coords)
     gaps = {}
     for key, p in flatten_with_paths(state["params"]):
         diff = (p.cpu() - want_p[key]).abs()
@@ -3887,7 +3918,7 @@ def tp_train_collectives(cfg, tokens, params, scatter, model=EP_MODEL):
 
     from repro_torch.checkpoint.manager import flatten_with_paths
     from repro_torch.models import transformer
-    from repro_torch.models.param import default_rules, shard_axes
+    from repro_torch.models.param import model_rules, shard_axes
 
     B, S = tokens
     d = cfg.d_model
@@ -3915,7 +3946,7 @@ def tp_train_collectives(cfg, tokens, params, scatter, model=EP_MODEL):
             grads.append(act)
         out.update(grads * nb)
     out.update(("all-reduce", 1, 4 * p.numel()) for _, p in flatten_with_paths(params))
-    out.update([("all-reduce", model, 4 * len(shard_axes(transformer.model_specs(cfg), model, default_rules())))])
+    out.update([("all-reduce", model, 4 * len(shard_axes(transformer.model_specs(cfg), {"model": model}, model_rules())))])
     return sorted(out.elements())
 
 
@@ -3927,7 +3958,7 @@ def ep_check(torch, one, rows, layers):
     import numpy as np
 
     from repro_torch.config.base import get_config
-    from repro_torch.models.param import default_rules
+    from repro_torch.models.param import model_rules
     from repro_torch.roofline.analysis import analyze
 
     cfg = ranks_config(layers)
@@ -4052,7 +4083,7 @@ def ep_check(torch, one, rows, layers):
     for r in rows:
         r["train"]["layers"] = layers
         r["experts_only"]["train"]["layers"] = EP_EXPERT_LAYERS
-    check(rows[0]["train"]["params_a_rank"] == ep_rank_params(cfg, default_rules()),
+    check(rows[0]["train"]["params_a_rank"] == ep_rank_params(cfg, model_rules()),
           f"{where}: a rank holds {rows[0]['train']['params_a_rank']} parameters")
     train = train_row([r["train"] for r in rows], one["train"], "reference layout", False)
     got = [r["experts_only"]["serve"] for r in rows]
@@ -4137,7 +4168,426 @@ def phase_expert_parallel(torch, nccl_train, card="cuda"):
 
 
 # --------------------------------------------------------------------- #
-# Phase 14: the dry-run and the roofline of whole steps
+# Phase 14: FSDP of embed over the data group
+# --------------------------------------------------------------------- #
+
+#: The meshes of (b) and (c): four gloo ranks sharing the card.
+FSDP_B, FSDP_C = {"data": 4, "model": 1}, {"data": 2, "model": 2}
+FSDP_WORLD = 4
+#: Seconds each wait on a rank may take: a process start, the kernel
+#: build, two served models and three train steps through gloo.
+FSDP_TIMEOUT_S = 900
+#: The train depth of (a)-(d): granite at full width, float32, one AdamW
+#: step of the 8 × 1024 tokens.  A rank holds a quarter of every leaf at
+#: (4, 1) (346,342,400 parameters at 24 layers), and gathers one block at a
+#: time; the time is gloo's host staging of every block's leaves three
+#: times a step (forward, recompute, reduce-scatter): at 24 layers a rank's
+#: step took 32-42 s and the phase about 370 s (PERF.md §6), over
+#: the script's time, so the depth is cut to half.
+FSDP_LAYERS = 12
+#: Decode steps of the served passes of (b) and (c), and the depth they
+#: serve: half of each model (granite 12 of 24 layers, mamba2-1.3b 24 of
+#: 48), cut for the script's time (a decode step gathers the whole model
+#: through gloo's host staging: 4.7-6.7 s a step at full depth, and the
+#: script took 941 s with both served whole; PERF.md §6).
+FSDP_DECODE_STEPS = 8
+FSDP_SERVE_LAYERS = {MOE_ARCH: 12, SSM_ARCH: 24}
+
+
+def fsdp_issued(cfg, mesh, kind, rows, h2=False):
+    """The multiset of (kind, group size, bytes) of the all-gathers and
+    reduce-scatters a rank of ``mesh`` issues over a group of more than one
+    rank in a ``kind`` ("prefill" or "train") step of ``rows`` × 1024
+    tokens under ``default_rules``: FSDP's all-gather over the data group
+    of each leaf the data axes slice (whole over them, the model axis's
+    slice: bf16 served, float32 trained or bf16 under H2) where it is used, twice a block leaf in a
+    train step (the forward and remat's recompute), and in the backward
+    one reduce-scatter a leaf of its rank's slice; over the model group a
+    MoE layer's default combine (twice in a train step) and a prefill's
+    last logits over the vocabulary."""
+    import collections
+    import math
+
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.models import transformer
+    from repro_torch.models.layers.moe import capacities
+    from repro_torch.models.model_api import build
+    from repro_torch.models.param import default_rules, dp_part, layer_shape, leaf_slices
+
+    data, model = mesh["data"], mesh["model"]
+    train = kind == "train"
+    act = 4 if train else 2
+    item = 2 if (not train or h2) else 4
+    nb = transformer.num_blocks(cfg)
+    out = collections.Counter()
+    for key, p in flatten_with_paths(build(cfg).specs()):
+        if data == 1 or not any(dp_part(ax) for _, ax in leaf_slices(p, mesh, default_rules())):
+            continue
+        block = key.startswith("blocks/")
+        # Whole over the data axes, the model axis's slice of it.
+        shape = layer_shape(p, mesh, default_rules())
+        whole = math.prod(shape[1:] if block else shape) * item
+        uses = nb if block else 1
+        out[("all-gather", data, whole)] += uses * (2 if train and block and cfg.remat else 1)
+        if train:
+            out[("reduce-scatter", data, whole // data)] += uses
+    if model > 1:
+        tokens = rows * PREFILL_LEN
+        if cfg.moe is not None:
+            E = cfg.moe.num_experts
+            out[("all-gather", model, E * capacities(cfg, tokens)[1] * cfg.d_model * act)] += \
+                n_moe_layers(cfg) * (2 if train else 1)
+        if not train:
+            out[("all-gather", model, cfg.padded_vocab * rows * act)] += 1
+    return out
+
+
+def fsdp_records(records):
+    """The all-gathers and reduce-scatters among a step's records, over a
+    group of more than one rank."""
+    import collections
+
+    return collections.Counter((k, g, b) for k, g, b in records if g > 1 and k in ("all-gather", "reduce-scatter"))
+
+
+def wire_row(records, chips):
+    """Records by kind and group size, with the wire bytes a rank sends
+    and ``t_collective`` at the H100's NVLink rate."""
+    from repro_torch.roofline.analysis import analyze
+
+    kinds = {}
+    for kind, group, nbytes in records:
+        row = kinds.setdefault(f"{kind} x{group}", {"count": 0, "bytes": 0})
+        row["count"] += 1
+        row["bytes"] += nbytes
+    terms = analyze({"flops": 0, "bytes": 0, "collectives": [
+        {"kind": k, "bytes": b, "group": g} for k, g, b in records]}, chips, 0.0)
+    return {"records": dict(sorted(kinds.items())), "wire_bytes_a_rank": terms.collective_bytes_global / chips,
+            "t_collective_s": terms.t_collective}
+
+
+def fsdp_rows(batch, mesh, data_rank):
+    """This rank's rows of a global batch."""
+    n = next(iter(batch.values())).shape[0] // mesh["data"]
+    return {k: v[data_rank * n:(data_rank + 1) * n] for k, v in batch.items()}
+
+
+def fsdp_one_process(torch, card, where):
+    """The yardsticks, in this process with every leaf whole: granite
+    served at num_groups 4 at FSDP_SERVE_LAYERS (8 × 1024 prefill,
+    FSDP_DECODE_STEPS greedy decode steps, every layer's output from
+    ``layer_outputs`` over all 8 prompts) and mamba2-1.3b served the same
+    way; granite at FSDP_LAYERS trained one float32 step at num_groups 4
+    (b), at (num_groups 2, num_ep_shards 2) (c) and so with H2 (d); the
+    parameters saved."""
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.models.layers.moe import SpmdCtx
+    from repro_torch.models.perf_flags import PerfFlags, use_flags
+
+    out = {}
+    with torch.no_grad():
+        for arch, ctx in ((MOE_ARCH, SpmdCtx(num_groups=FSDP_WORLD)), (SSM_ARCH, SpmdCtx())):
+            served = served_model(torch, arch, layers=FSDP_SERVE_LAYERS[arch], ctx=ctx)
+            at_input_fan_in(served[2])
+            logits, toks, prefill_s, decode_s, _, _ = ep_served_passes(
+                torch, served, combines=(False,), steps=FSDP_DECODE_STEPS)[False]
+            check(bool(torch.isfinite(logits.float()).all()), f"fsdp one process: {arch} logits not finite")
+            torch.save({"logits": logits, "tokens": toks, "layers": layer_outputs(torch, served, prompts=PREFILL_BATCH)},
+                       os.path.join(where, f"{arch}.pt"))
+            out[arch] = {"prefill_s": prefill_s, "decode_s": decode_s}
+            del served
+            torch.cuda.empty_cache()
+    batches = [{k: v.to(card) for k, v in ranks_batches(torch, ranks_config(FSDP_LAYERS))[0].items()}]
+    for part, ctx, h2 in (("b", SpmdCtx(num_groups=FSDP_WORLD), False), ("c", SpmdCtx(num_groups=2, num_ep_shards=2), False),
+                          ("d", SpmdCtx(num_groups=2, num_ep_shards=2), True)):
+        torch.cuda.reset_peak_memory_stats()
+        with use_flags(PerfFlags(cast_before_gather=h2)):
+            state, run = ep_train(torch, card, FSDP_LAYERS, ctx, batches, start_step=1)
+        run["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        run["dyskew"] = {k: v.cpu().numpy() for k, v in flatten_with_paths(state["dyskew"])}
+        torch.save({k: v.cpu() for k, v in flatten_with_paths(state["params"])}, os.path.join(where, f"params_{part}.pt"))
+        out[part] = run
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_rank_train(torch, card, ctx, mesh, where, part, h2=False):
+    """A rank's one train step of granite at FSDP_LAYERS on its rows, held
+    to one process's parameters (``params_<part>.pt``): the readings."""
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.models.model_api import build
+    from repro_torch.models.param import shard_axes, slice_shards
+    from repro_torch.models.perf_flags import PerfFlags, use_flags
+
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    cfg = ranks_config(FSDP_LAYERS)
+    specs = build(cfg).specs()
+    batch = fsdp_rows(ranks_batches(torch, cfg)[0], ctx.mesh, mesh.data_rank)
+    torch.cuda.reset_peak_memory_stats(card)
+    t0 = time.perf_counter()
+    with use_flags(PerfFlags(cast_before_gather=h2)):
+        state, run = ep_train(torch, card, FSDP_LAYERS, ctx, [{k: v.to(card) for k, v in batch.items()}], specs,
+                              start_step=1)
+    run["seconds"] = time.perf_counter() - t0
+    run["peak_memory_bytes"] = torch.cuda.max_memory_allocated(card)
+    run["dyskew"] = {k: v.cpu().numpy() for k, v in flatten_with_paths(state["dyskew"])}
+    ref = torch.load(os.path.join(where, f"params_{part}.pt"), mmap=True)
+    want = slice_shards(ref, shard_axes(specs, ctx.mesh, ctx.rules), ctx.mesh, ctx.coords)
+    gaps = {}
+    for key, p in flatten_with_paths(state["params"]):
+        diff = (p.cpu() - want[key]).abs()
+        gaps[key] = {"max_rel": float(diff.max()) / float(want[key].abs().max()),
+                     "max_over_lr": float(diff.max()) / run["lr"]}
+    run["against_one_process"] = gaps
+    run["params_a_rank"] = sum(p.numel() for _, p in flatten_with_paths(state["params"]))
+    del state, ref, want
+    torch.cuda.empty_cache()
+    return run
+
+
+def fsdp_rank_serve(torch, arch, ctx, where, data_rank):
+    """A rank's prefill of its prompts and FSDP_DECODE_STEPS decode steps
+    fed one process's tokens, and each layer's output fed one process's
+    input, against one process's (``<arch>.pt``)."""
+    served = served_model(torch, arch, layers=FSDP_SERVE_LAYERS[arch], ctx=ctx)
+    at_input_fan_in(served[2], served[0].specs())
+    model, _, params, inputs, prefill, decode = served
+    n = PREFILL_BATCH // ctx.mesh["data"]
+    rows = slice(data_rank * n, (data_rank + 1) * n)
+    served = (model, ctx, params, {k: v[rows] for k, v in inputs.items()}, prefill, decode)
+    want = torch.load(os.path.join(where, f"{arch}.pt"))
+    teacher = {"embed": want["layers"]["embed"][rows], "layers": [x[rows] for x in want["layers"]["layers"]],
+               "router": [x.reshape(PREFILL_BATCH, PREFILL_LEN, -1)[rows].reshape(-1, x.shape[-1])
+                          for x in want["layers"]["router"]]}
+    out = {"layers": layers_check(torch, layer_outputs(torch, served, teacher, prompts=n), teacher,
+                                  model.cfg.moe.top_k if model.cfg.moe is not None else None)}
+    logits, toks, prefill_s, decode_s, launches, records = ep_served_passes(
+        torch, served, forced={False: want["tokens"][:, rows]}, combines=(False,), steps=FSDP_DECODE_STEPS)[False]
+    out.update(served_against(torch, logits, toks, want["logits"][rows]), prefill_s=prefill_s, decode_s=decode_s,
+               launches=launches, records=records)
+    del served, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_rank(rank, world, init_method, where):
+    """Rank ``rank`` of (b), then of (c) and (d) on a second process group
+    of the same ranks: granite served and trained at (data 4, model 1);
+    granite trained, with H2 too, and mamba2-1.3b served at (data 2, model
+    2); under ``default_rules``, each held to one process's files in
+    ``where``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_ranks, mesh_ctx
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = EXPANDABLE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    card = torch.device("cuda", 0)
+    out = {"seconds": {}}
+    for part, model in (("b", 1), ("c", 2)):
+        store = init_method if part == "b" else init_method + "_c"
+        mesh = init_ranks(rank, world, device=card, init_method=store, backend="gloo", model=model)
+        try:
+            ctx = mesh_ctx(mesh)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out[part] = {"serve": fsdp_rank_serve(torch, MOE_ARCH if part == "b" else SSM_ARCH, ctx, where,
+                                                      mesh.data_rank)}
+            out["seconds"][part + "_serve"] = time.perf_counter() - t0
+            out[part]["train"] = fsdp_rank_train(torch, card, ctx, mesh, where, part)
+            if part == "c":
+                out["d"] = {"train": fsdp_rank_train(torch, card, ctx, mesh, where, "d", h2=True)}
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def fsdp_one_rank(torch, card):
+    """(a): one NCCL rank, data and model groups of one, under
+    ``default_rules``: granite at full width and depth served (8 × 1024
+    prefill, 32 greedy decode steps) and one float32 train step at
+    FSDP_LAYERS, against no group: the same bits.  Returns (row, the path's
+    launches)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.launch.mesh import init_ranks, mesh_ctx
+    from repro_torch.models.layers.moe import SpmdCtx
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    where = "fsdp (a)"
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        mesh = init_ranks(0, 1, device=torch.device("cuda", 0), init_method="file://" + os.path.join(tmp, "store"))
+        try:
+            grouped = mesh_ctx(mesh, num_groups=1)
+            row = {"backend": "nccl", "mesh": mesh.shape, "rules": "default_rules", "layers": ranks_config().num_layers}
+            with torch.no_grad():
+                model, _, params, inputs, _, _ = served = served_model(torch, MOE_ARCH, ctx=grouped)
+                alone = SpmdCtx()
+                got = {}
+                for kind, s in (("group", served), ("alone", (model, alone, params, inputs, make_prefill_step(model, alone),
+                                                              make_decode_step(model, alone)))):
+                    kernels.reset_launch_counts()
+                    _, logits, toks, prefill_s, decode_s = serve_pass(torch, s)
+                    launches = kernels.launch_counts()
+                    moe_counts_are(launches, n_moe_layers(model.cfg) * (1 + DECODE_STEPS), f"{where} {kind}")
+                    if kind == "group":
+                        counts = dict(launches)
+                    got[kind] = (logits, toks, prefill_s, decode_s)
+                check(all(torch.equal(a, b) for a, b in zip(got["group"][0], got["alone"][0])),
+                      f"{where}: logits differ from no group")
+                check(all(torch.equal(a, b) for a, b in zip(got["group"][1], got["alone"][1])),
+                      f"{where}: tokens differ from no group")
+                row["serve"] = {"logits_equal": True, "tokens_equal": True,
+                                "prefill_s": {k: v[2] for k, v in got.items()},
+                                "decode_s": {k: v[3] for k, v in got.items()}}
+                del served, params, got
+                torch.cuda.empty_cache()
+            batches = [{k: v.to(card) for k, v in ranks_batches(torch, ranks_config(FSDP_LAYERS))[0].items()}]
+            runs = {}
+            for kind, ctx in (("group", grouped), ("alone", SpmdCtx(num_groups=1))):
+                state, run = ep_train(torch, card, FSDP_LAYERS, ctx, batches, start_step=1)
+                runs[kind] = (run, {k: v.cpu() for k, v in flatten_with_paths(state["params"])})
+                if kind == "group":
+                    counts = {k: counts.get(k, 0) + v for k, v in run["launches"].items()}
+                del state
+                torch.cuda.empty_cache()
+            (a, pa), (b, pb) = runs["group"], runs["alone"]
+            check(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"], f"{where}: loss or grad_norm differ")
+            check(all(torch.equal(pa[k], pb[k]) for k in pa), f"{where}: parameters differ from no group")
+            row["train"] = {"layers": FSDP_LAYERS, "loss": a["loss"], "grad_norm": a["grad_norm"], "equal_to_no_group": True,
+                            "ms": {"group": a["ms"], "alone": b["ms"]}, **wire_row(a["records"], 1)}
+        finally:
+            dist.destroy_process_group()
+    return row, counts
+
+
+def fsdp_check(torch, one, rows):
+    """(b), (c), (d): the ranks against one process and against what they
+    issue; returns (row, the ranks' summed launches)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.config.base import get_config
+
+    cfg = ranks_config(FSDP_LAYERS)
+    out, summed = {}, {}
+    for part, mesh in (("b", FSDP_B), ("c", FSDP_C), ("d", FSDP_C)):
+        where = f"fsdp ({part})"
+        train = [r[part]["train"] for r in rows]
+        base = one[part]
+        for t in train:
+            for key in ("loss", "grad_norm"):
+                rel = abs(t[key][0] - base[key][0]) / abs(base[key][0])
+                check(rel <= RANKS_LOSS_RTOL, f"{where}: {key} {t[key]} against one process {base[key]}")
+            for key, a in base["dyskew"].items():
+                if not (key.endswith("ema_loads") or "/metrics/" in key):
+                    check(np.array_equal(a, t["dyskew"][key]), f"{where}: link state {key} against one process")
+            for key, g in t["against_one_process"].items():
+                check(g["max_over_lr"] <= 2.0, f"{where}: parameter {key} against one process: {g}")
+            issued = fsdp_issued(cfg, mesh, "train", TRAIN_BATCH // mesh["data"], h2=part == "d")
+            check(fsdp_records(t["records"]) == issued, f"{where}: a rank's gathers and reduce-scatters against "
+                  "what it issues")
+            moe_counts_are(t["launches"], 2 * n_moe_layers(cfg), f"{where}: a rank's train step")
+            summed = {k: summed.get(k, 0) + v for k, v in t["launches"].items()}
+        check(all(t["loss"] == train[0]["loss"] and t["grad_norm"] == train[0]["grad_norm"] for t in train),
+              f"{where}: the ranks' losses or grad norms differ")
+        out[part] = {"mesh": mesh, "layers": FSDP_LAYERS, "loss": train[0]["loss"], "grad_norm": train[0]["grad_norm"],
+                     "one_process": {k: base[k] for k in ("loss", "grad_norm", "ms", "peak_memory_bytes")},
+                     "params_a_rank": train[0]["params_a_rank"], "rank_seconds": [t["seconds"] for t in train],
+                     "peak_memory_bytes": [t["peak_memory_bytes"] for t in train],
+                     "param_max_over_lr": max(g["max_over_lr"] for t in train for g in t["against_one_process"].values()),
+                     **wire_row(train[0]["records"], FSDP_WORLD)}
+    # FSDP's all-gathers alone (the data axes' part of what (c) and (d)
+    # issue, held above): H2's move half the bytes.
+    gathers = {p: sum(n * b for (k, _, b), n in fsdp_issued(cfg, {"data": 2, "model": 1}, "train", 4, h2).items()
+                      if k == "all-gather") for p, h2 in (("c", False), ("d", True))}
+    check(2 * gathers["d"] == gathers["c"], f"fsdp (d): H2's gathers move {gathers}")
+    out["d"]["fsdp_gather_bytes"] = gathers
+    for part, arch, mesh in (("b", MOE_ARCH, FSDP_B), ("c", SSM_ARCH, FSDP_C)):
+        where = f"fsdp ({part}) {arch}"
+        got = [r[part]["serve"] for r in rows]
+        acfg = dataclasses.replace(get_config(arch), num_layers=FSDP_SERVE_LAYERS[arch])
+        for g in got:
+            check(g["layers"]["embed_equal"], f"{where}: the embedding's output differs from one process")
+            check(g["layers"]["max_band_ratio"] <= 1.0, f"{where}: a layer {g['layers']['max_band_ratio']} of the band "
+                  f"off one process's from the same input: {g['layers']['band_ratio']}")
+            check(g["layers"]["other_picks_outside_near_ties"] == 0, f"{where}: other picks off a near tie")
+            issued = fsdp_issued(acfg, mesh, "prefill", PREFILL_BATCH // mesh["data"])
+            check(fsdp_records(g["records"]) == issued, f"{where}: a rank's prefill gathers against what it issues")
+            summed = {k: summed.get(k, 0) + v for k, v in g["launches"].items()}
+        if acfg.mamba is not None:
+            check(all(g["launches"]["ssd_state_scan"] == n_mamba_layers(acfg) for g in got), f"{where}: scan launches")
+        else:
+            moe_counts_are(got[0]["launches"], n_moe_layers(acfg) * (1 + FSDP_DECODE_STEPS), where)
+        out[part]["serve"] = {"arch": arch, "layers": acfg.num_layers,
+                              "max_layer_band_ratio": max(g["layers"]["max_band_ratio"] for g in got),
+                              "logits_band_ratio": max(g["band_ratio"] for g in got),
+                              "flips": sum(g["flips"] for g in got), "positions": sum(g["positions"] for g in got),
+                              "prefill_s": [g["prefill_s"] for g in got], "decode_s": [g["decode_s"] for g in got],
+                              "one_process": one[arch], **wire_row(got[0]["records"], FSDP_WORLD)}
+    out["timed_note"] = "gloo stages every collective through the host: these are not NCCL's times"
+    return out, summed
+
+
+def phase_fsdp(torch, card="cuda"):
+    """FSDP of embed over the data group: one NCCL rank with groups of one
+    against no group (a); four gloo ranks sharing the card at (data 4,
+    model 1) (b) and (data 2, model 2) (c), with H2 (d), held to one
+    process.  Returns the main path's launch counts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.param import default_rules
+
+    t_start = time.perf_counter()
+    row = {"phase": "fsdp", "meshes": {"b": FSDP_B, "c": FSDP_C}, "train_layers": FSDP_LAYERS}
+    row["one_rank"], counts = fsdp_one_rank(torch, card)
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    emit({"phase": "fsdp_depth", "layers": FSDP_LAYERS, "of": ranks_config().num_layers,
+          "params_a_rank": {p: ep_rank_params(ranks_config(FSDP_LAYERS), default_rules(), mesh=m) for p, m in
+                            (("b", FSDP_B), ("c", FSDP_C))}})
+    where = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_fsdp_")
+    try:
+        t0 = time.perf_counter()
+        one = fsdp_one_process(torch, card, where)
+        row["one_process_seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rows = run_ranks(fsdp_rank, FSDP_WORLD, where, timeout=FSDP_TIMEOUT_S, store_dir=where)
+        row["ranks_seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    emit({"phase": "fsdp_readings", "rank_seconds": [r["seconds"] for r in rows],
+          "train": {p: {k: rows[0][p]["train"][k] for k in ("loss", "grad_norm", "ms", "peak_memory_bytes")}
+                    for p in ("b", "c", "d")},
+          "one_process": {p: {k: one[p][k] for k in ("loss", "grad_norm", "ms")} for p in ("b", "c", "d")},
+          "layers": {p: rows[0][p]["serve"]["layers"]["max_band_ratio"] for p in ("b", "c")}})
+    row["ranks"], got = fsdp_check(torch, one, rows)
+    counts = {k: counts.get(k, 0) + got.get(k, 0) for k in set(counts) | set(got)}
+    row["launches"] = counts
+    row["seconds"] = time.perf_counter() - t_start
+    emit(row)
+    return counts
+
+
+# --------------------------------------------------------------------- #
+# Phase 15: the dry-run and the roofline of whole steps
 # --------------------------------------------------------------------- #
 
 #: The configs whose dry-run cells this phase counts: the six the script
@@ -4292,33 +4742,88 @@ def roofline_train(torch, arch):
     return row
 
 
-def phase_roofline(torch):
-    """The dry-run of every cell of ROOFLINE_ARCHS (one line a cell; a FAIL
-    fails the run), then the six steps counted on the card against ``meta``
-    with their ``mfu``."""
-    from repro_torch.config.base import SHAPES
-    from repro_torch.launch.dryrun import run_cell
+#: The dry-run of a pod's rank (``--mesh single`` / ``multi``): granite and
+#: mamba2 served and trained on a rank of (data 16, model 16), granite
+#: trained on a rank of (pod 2, data 16, model 16).
+POD_CELLS = tuple((arch, shape, "single") for arch in (MOE_ARCH, SSM_ARCH)
+                  for shape in ("train_4k", "prefill_32k", "decode_32k")) + ((MOE_ARCH, "train_4k", "multi"),)
+#: Seconds the roofline phase may wait for the dry-run's process once the
+#: card's phases are done.
+DRYRUN_TIMEOUT_S = 600
 
+
+def dryrun_cells(results) -> None:
+    """The dry-run's records, in a process of their own: every cell of
+    ROOFLINE_ARCHS on one card, then POD_CELLS (each pod rank's fake
+    process group meets no live one), with each part's seconds, put on
+    ``results``.  A failure is put there too."""
+    try:
+        import torch
+
+        from repro_torch.config.base import SHAPES
+        from repro_torch.launch.dryrun import run_cell
+
+        torch.set_num_threads(1)
+        t0 = time.perf_counter()
+        card = [run_cell(arch, shape, "card", verbose=False) for arch in ROOFLINE_ARCHS for shape in SHAPES]
+        t1 = time.perf_counter()
+        pods = [run_cell(arch, shape, mesh, verbose=False) for arch, shape, mesh in POD_CELLS]
+        results.put((card, pods, t1 - t0, time.perf_counter() - t1, None))
+    except BaseException:
+        import traceback
+
+        results.put((None, None, 0.0, 0.0, traceback.format_exc()))
+
+
+def start_dryrun():
+    """Starts ``dryrun_cells`` in a spawned process (it runs on the host's
+    cores beside the card's phases): (process, its results queue)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=dryrun_cells, args=(results,), daemon=True)
+    proc.start()
+    return proc, results
+
+
+def phase_roofline(torch, pending):
+    """The dry-run of every cell of ROOFLINE_ARCHS on one card (one line a
+    cell; a FAIL fails the run) and of POD_CELLS on a pod's rank, from the
+    process ``start_dryrun`` started (``pending``), then the six steps
+    counted on the card against ``meta`` with their ``mfu``."""
     t_start = time.perf_counter()
+    proc, results = pending
+    card, pods, dryrun_s, pod_s, error = results.get(timeout=DRYRUN_TIMEOUT_S)
+    proc.join(DRYRUN_TIMEOUT_S)
+    check(error is None, f"roofline: the dry-run's process failed:\n{error}")
+    waited_s = time.perf_counter() - t_start
     ok = skipped = 0
-    for arch in ROOFLINE_ARCHS:
-        for shape in SHAPES:
-            rec = run_cell(arch, shape, verbose=False)
-            status = rec["status"]
-            check(not status.startswith("FAIL"), f"roofline: dry-run {arch} x {shape}: {status}\n"
-                  + rec.get("traceback", ""))
-            line = {"phase": "roofline_cell", "arch": arch, "shape": shape, "status": status}
-            if status == "OK":
-                ok += 1
-                t = rec["roofline"]
-                line.update(model_flops=rec["model_flops"], flops=rec["cost"]["flops"],
-                            bytes=rec["cost"]["bytes"], t_compute_s=t["t_compute_s"],
-                            t_memory_s=t["t_memory_s"], peak_gb=rec["memory"]["per_device_total_gb"],
-                            fits_hbm=rec["memory"]["fits_hbm"], trace_s=rec["trace_s"])
-            else:
-                skipped += 1
-            emit(line)
-    dryrun_s = time.perf_counter() - t_start
+    for rec in card:
+        status = rec["status"]
+        check(not status.startswith("FAIL"), f"roofline: dry-run {rec['arch']} x {rec['shape']}: {status}\n"
+              + rec.get("traceback", ""))
+        line = {"phase": "roofline_cell", "arch": rec["arch"], "shape": rec["shape"], "status": status}
+        if status == "OK":
+            ok += 1
+            t = rec["roofline"]
+            line.update(model_flops=rec["model_flops"], flops=rec["cost"]["flops"],
+                        bytes=rec["cost"]["bytes"], t_compute_s=t["t_compute_s"],
+                        t_memory_s=t["t_memory_s"], peak_gb=rec["memory"]["per_device_total_gb"],
+                        fits_hbm=rec["memory"]["fits_hbm"], trace_s=rec["trace_s"])
+        else:
+            skipped += 1
+        emit(line)
+    for rec in pods:
+        check(rec["status"] == "OK", f"roofline: pod rank {rec['arch']} x {rec['shape']} x {rec['mesh']}: "
+              f"{rec['status']}\n" + rec.get("traceback", ""))
+        t = rec["roofline"]
+        emit({"phase": "roofline_pod_cell", "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+              "mesh_shape": rec["mesh_shape"], "chips": rec["chips"], "params_a_rank": rec["params_a_rank"],
+              "rows_a_rank": rec["rows_a_rank"], "peak_gb": rec["memory"]["per_device_total_gb"],
+              "fits_hbm": rec["memory"]["fits_hbm"], "t_compute_s": t["t_compute_s"],
+              "t_memory_s": t["t_memory_s"], "t_collective_s": t["t_collective_s"], "bottleneck": t["bottleneck"],
+              "collectives": rec["collectives"], "trace_s": rec["trace_s"]})
     rows = roofline_serve(torch, MOE_ARCH) + roofline_serve(torch, SSM_ARCH)
     rows += [roofline_train(torch, MOE_ARCH), roofline_train(torch, SSM_ARCH)]
     for row in rows:
@@ -4329,7 +4834,8 @@ def phase_roofline(torch):
         check(row["records_equal_launches"], f"roofline {row['step']}: records {row['kernels']} "
               f"against launches {row['launches']}")
     emit({"phase": "roofline", "archs": list(ROOFLINE_ARCHS), "cells_ok": ok, "cells_skipped": skipped,
-          "dryrun_s": dryrun_s, "steps": len(rows), "seconds": time.perf_counter() - t_start})
+          "dryrun_s": dryrun_s, "pod_cells": len(POD_CELLS), "pod_s": pod_s, "waited_for_dryrun_s": waited_s,
+          "steps": len(rows), "seconds": time.perf_counter() - t_start})
 
 
 # --------------------------------------------------------------------- #
@@ -4368,7 +4874,19 @@ def main() -> int:
     emit({"phase": "build", "seconds": _loader.last_build_seconds,
           "sources": [os.path.relpath(s, ROOT) for s in _loader.sources()],
           "flags": list(_loader.NVCC_FLAGS)})
+    # The dry-run needs no card: it runs beside the card's phases.
+    pending = start_dryrun()
+    try:
+        return run_phases(torch, args, smi, pending, t_script)
+    finally:
+        if pending[0].is_alive():
+            pending[0].terminate()
+        pending[0].join()
 
+
+def run_phases(torch, args, smi, pending, t_script) -> int:
+    """Every phase after the build, then the ``kernels`` line and the last
+    lines."""
     # float32 products in full float32 on both sides of every comparison.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4403,8 +4921,9 @@ def main() -> int:
     counts["train_mamba"] = phase_train_mamba(torch, profile=args.profile)
     counts["ranks"], nccl_train = phase_ranks(torch)
     counts["expert_parallel"] = phase_expert_parallel(torch, nccl_train)
+    counts["fsdp"] = phase_fsdp(torch)
     # Its launches are held to its own counter records, not to the paths'.
-    phase_roofline(torch)
+    phase_roofline(torch, pending)
 
     rows = []
     prefill_case = {"topk_gating": "prefill_bf16", "load_histogram": "prefill",

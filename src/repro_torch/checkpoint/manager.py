@@ -23,15 +23,16 @@
     another world size, or where that file is missing, such a leaf starts
     at zero: a residual is what one rank's quantization left over, and has
     no meaning for another split of the batch.
-  * elastic across the model axis (``ep_group``, with ``shards``, the
-    ``{key path: axis}`` of the state's sliced leaves, ``param.shard_axes``
-    of the train state's specs under the rule table): each rank holds its
-    slice of such a leaf along its own axis, so ``save`` all-gathers each
-    one over the model group of data rank 0 and the file holds whole
-    leaves, as one process writes them; ``restore`` slices each for the
-    restoring rank's model index.  A
-    checkpoint written at (data 1, model 2) restores at (data 1, model 4),
-    at (data 2, model 1) and in one process.  The rank files of a mesh
+  * elastic across the mesh (``group``, ``ep_group``, with ``shards``,
+    the ``{key path: slices}`` of the state's sliced leaves,
+    ``param.shard_axes`` of the train state's specs under the rule table):
+    each rank holds its slice of such a leaf along each sliced dimension
+    (over the data axes, the model axis, or both), so ``save`` all-gathers
+    each one whole over the groups that slice it, on every rank (a fused
+    (data, model) dimension over the model group, then the data group), and
+    the file holds whole leaves, as one process writes them; ``restore``
+    slices each for the restoring rank.  A checkpoint written at (data 2,
+    model 2) restores at (data 1, model 1), (4, 1) and (1, 2).  The rank files of a mesh
     with a model axis are named by the global rank and both axes,
     ``rank<r>of<D>x<M>``.  The MoE links keep one state machine an
     expert-parallel shard: restored onto another shard count, a link leaf
@@ -53,7 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch import distributed
-from repro_torch.models.param import take_shard
+from repro_torch.models.param import Slice, dp_part, take_shard
 
 BF16_RAW = "bfloat16"
 #: Top-level keys of a train state that each rank holds for itself.
@@ -115,15 +116,16 @@ def _from_host(arr: np.ndarray, kind: Optional[str], ref: torch.Tensor, key: str
 
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3, group: distributed.Group = None,
-                 ep_group: distributed.Group = None, shards: Optional[Dict[str, int]] = None):
+                 ep_group: distributed.Group = None, shards: Optional[Dict[str, Tuple[Slice, ...]]] = None):
         self.directory = directory
         self.keep = keep
+        self.group = group
         self.ep_group = ep_group
         self.shards = shards or {}
         self.data_rank = distributed.rank_of(group)
         self.model_rank = distributed.rank_of(ep_group)
         self.model_size = distributed.world_size(ep_group)
-        data = distributed.world_size(group)
+        data = self.data_size = distributed.world_size(group)
         self.rank = self.data_rank * self.model_size + self.model_rank
         self.world = data * self.model_size
         self._tag = f"of{data}" if self.model_size == 1 else f"of{data}x{self.model_size}"
@@ -135,17 +137,34 @@ class CheckpointManager:
 
     def _whole(self, replicated: Any) -> Any:
         """The replicated part with each sliced leaf gathered whole over
-        the model group along its axis (only data rank 0's group, which
-        writes)."""
-        if self.ep_group is None or self.data_rank != 0:
+        the groups that slice it (on every rank: each data group holds
+        other slices)."""
+        if not self.shards:
             return replicated
         leaves = {}
         for key, leaf in flatten_with_paths(replicated):
-            if key in self.shards:
-                axis = self.shards[key]
-                leaf = distributed.gather_shards(leaf.movedim(axis, 0), self.ep_group).movedim(0, axis)
+            for dim, axes in self.shards.get(key, ()):
+                for group in self._groups(axes):
+                    leaf = distributed.gather_shards(leaf.movedim(dim, 0), group).movedim(0, dim)
             leaves[key] = leaf
         return _unflatten_like(replicated, leaves)
+
+    def _groups(self, axes) -> List[distributed.Group]:
+        """The groups a dimension sliced over ``axes`` is gathered over,
+        innermost first."""
+        out = [self.ep_group] if "model" in axes else []
+        return out + ([self.group] if dp_part(axes) else [])
+
+    def _slice(self, arr: np.ndarray, slices) -> np.ndarray:
+        """This rank's slice of a whole leaf, data-major over fused axes."""
+        for dim, axes in slices:
+            index, size = 0, 1
+            if dp_part(axes):
+                index, size = self.data_rank, self.data_size
+            if "model" in axes:
+                index, size = index * self.model_size + self.model_rank, size * self.model_size
+            arr = take_shard(arr, dim, index, size)
+        return arr
 
     # ------------------------- save -------------------------- #
 
@@ -252,8 +271,7 @@ class CheckpointManager:
         with np.load(os.path.join(path, "shard_host0.npz")) as data:
             for key, leaf in flatten_with_paths(replicated):
                 arr = data[key]
-                if key in self.shards:
-                    arr = take_shard(arr, self.shards[key], self.model_rank, self.model_size)
+                arr = self._slice(arr, self.shards.get(key, ()))
                 ref = torch.as_tensor(leaf)
                 if key.startswith("dyskew/") and arr.shape != tuple(ref.shape):
                     out[key] = ref.clone()

@@ -22,6 +22,14 @@ gradients of a replicated tensor that each rank used only for its own
 shard.  ``torch.distributed.nn.functional``'s ``all_gather`` and
 ``all_reduce`` assume split downstream work instead and would give M times
 the gradient here.
+
+Over the data group, FSDP's ``gather_fsdp`` is the other pair: the
+forward all-gathers a leaf's slices along its sliced dimension, and the
+backward reduce-scatters (SUM) the gradient back to this rank's slice.
+The data group's ranks hold other rows of the batch, so their gradients
+of the whole leaf differ and must be summed: ``gather_shards``' backward,
+which keeps this rank's rows unsummed, would drop the other ranks' parts
+with no error.
 """
 
 from __future__ import annotations
@@ -132,3 +140,41 @@ def sum_shards(t: torch.Tensor, group: Group) -> torch.Tensor:
     """The sum of the ranks' partial ``t`` (one all_reduce); the backward
     passes the gradient through to each rank's part."""
     return t if group is None else _SumShards.apply(t, group)
+
+
+class _GatherFsdp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group, scatter, inner, inner_rank):
+        ctx.dim, ctx.scatter, ctx.inner, ctx.inner_rank = dim, scatter, inner, inner_rank
+        src = t.movedim(dim, 0).contiguous()
+        ctx.rows = src.shape[0]
+        out = src.new_empty((dist.get_world_size(group) * ctx.rows,) + tuple(src.shape[1:]))
+        dist.all_gather_into_tensor(out, src, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.movedim(ctx.dim, 0)
+        if ctx.inner > 1:
+            # The rows of this rank's model index in every data block: the
+            # model group's ranks hold the same gradient.
+            rest = tuple(g.shape[1:])
+            g = g.reshape((-1, ctx.inner, ctx.rows) + rest)[:, ctx.inner_rank].reshape((-1,) + rest)
+        g = g.contiguous()
+        out = g.new_empty((ctx.rows,) + tuple(g.shape[1:]))
+        dist.reduce_scatter_tensor(out, g, op=dist.ReduceOp.SUM, group=ctx.scatter)
+        return out.movedim(0, ctx.dim), None, None, None, None, None
+
+
+def gather_fsdp(t: torch.Tensor, dim: int, group: Group, world: Group = None) -> torch.Tensor:
+    """FSDP's all-gather: the data group's slices of a leaf joined along
+    ``dim`` in rank order; the backward sums the gradient over the data
+    group and keeps this rank's slice (one reduce-scatter).  With ``world``
+    the slices are over the fused ``(data, model)`` (H6): ``world``'s ranks
+    in mesh order, the model index innermost; the backward then takes the
+    rows of this rank's model index (every rank of a model group holds the
+    same gradient) and reduce-scatters them over ``group``."""
+    if world is None:
+        return t if group is None else _GatherFsdp.apply(t, dim, group, group, 1, 0)
+    inner = dist.get_world_size(world) // world_size(group)
+    return _GatherFsdp.apply(t, dim, world, group, inner, dist.get_rank(world) % inner)

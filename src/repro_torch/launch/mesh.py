@@ -1,22 +1,25 @@
 """The port's mesh: ranks over ``torch.distributed`` with axes ``data`` and
-``model``, laid out as ``repro.launch.mesh`` lays out a TPU pod.
+``model``, and ``pod`` outside them, laid out as ``repro.launch.mesh``
+lays out TPU pods.
 
 ``repro`` lays a pod out as (data 16, model 16) and two pods as (pod 2,
-data 16, model 16).  Here one process is the mesh (data 1, model 1), and
-``init_ranks`` makes rank ``r`` of a (data D, model M) mesh after
-``torch.distributed.init_process_group``, with ``r = d·M + m`` (the model
-index innermost, as ``jax.make_mesh((data, model))`` orders devices) and
-two process groups: the **data group** of the D ranks with the same ``m``
-(the loss's and the gradients' sums, the link's loads) and the **model
-group** of the M ranks with the same ``d``.  The ranks of a model group
-hold the same rows of every batch and the same replicated parameters; each
-holds its slice of what ``repro``'s ``default_rules`` put on ``model``
-(experts, heads, kv_heads, mlp, vocab, ssm_heads, with ``resolve_pspec``'s
-fallback to replication; ``models/param.py``).  The backend follows the
-device, NCCL for ``cuda`` (one card a rank) and gloo for ``cpu``, with no
-fallback from one to the other.  What is still missing is ``ROADMAP.md``
-queue A: the dry-run of a pod's rank, FSDP of ``embed`` over ``data`` and
-the pod meshes, which raise rather than quietly give another mesh.
+data 16, model 16) (``make_production_mesh``).  Here one process is the
+mesh (data 1, model 1), and ``init_ranks`` makes rank ``r`` of a (pod P,
+data D, model M) mesh after ``torch.distributed.init_process_group``, with
+``r = (p·D + d)·M + m`` (the model index innermost, as ``jax.make_mesh``
+orders devices) and three process groups: the **data group** of the P·D
+ranks with the same ``m``, over ``(pod, data)`` (the loss's and the
+gradients' sums, the link's loads, and FSDP's all-gathers and
+reduce-scatters of the leaves ``repro``'s ``default_rules`` put on
+``data``), the **model group** of the M ranks with the same ``(p, d)``
+(the slices of experts, heads, ffn width, vocabulary and Mamba heads) and
+the **world** in mesh order (H6's fused ``(data, model)`` slices).  The
+ranks of a model group hold the same rows of every batch.  The backend
+follows the device, NCCL for ``cuda`` (one card a rank) and gloo for
+``cpu``, with no fallback from one to the other; ``backend="fake"``
+(``torch.testing``'s fake process group) makes the groups of one rank of a
+pod in one process, for the dry-run, whose collectives on ``meta``
+tensors move nothing.
 """
 
 from __future__ import annotations
@@ -32,24 +35,21 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-_MULTI_GPU = ("the pod meshes are multi-GPU work still to port (ROADMAP.md queue A: a dry-run "
-              "of a (data 16, model 16) rank, FSDP of embed over the data group, then the pod "
-              "meshes); the port's mesh shards the data axis and the model axis by repro's "
-              "default_rules, embed left whole")
-
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     axes: Tuple[str, ...] = ("data", "model")
     sizes: Tuple[int, ...] = (1, 1)
-    #: The data group: the ranks with this rank's model index (None: one
-    #: process).
+    #: The data group: the ranks with this rank's model index, over
+    #: ``(pod, data)`` (None: one process).
     group: Any = None
     #: The global rank, ``data_rank · M + model_rank``.
     rank: int = 0
-    #: The model group: the ranks with this rank's data index, over which
-    #: the parameters are sharded (None: one process).
+    #: The model group: the ranks with this rank's pod and data index
+    #: (None: one process).
     ep_group: Any = None
+    #: Every rank in mesh order (None: one process).
+    world: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -57,23 +57,47 @@ class Mesh:
 
     @property
     def data_rank(self) -> int:
+        """The rank's index in its data group, ``p·D + d``."""
         return self.rank // self.shape["model"]
 
     @property
     def model_rank(self) -> int:
         return self.rank % self.shape["model"]
 
+    @property
+    def coords(self) -> Dict[str, int]:
+        """The rank's index on each axis."""
+        out, r = {}, self.rank
+        for ax, n in reversed(list(zip(self.axes, self.sizes))):
+            out[ax] = r % n
+            r //= n
+        return {ax: out[ax] for ax in self.axes}
+
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """``repro``'s pod meshes as a description (no groups): (data 16,
+    model 16), or (pod 2, data 16, model 16)."""
     if multi_pod:
-        raise NotImplementedError(_MULTI_GPU)
-    return Mesh()
+        return Mesh(axes=("pod", "data", "model"), sizes=(2, 16, 16))
+    return Mesh(axes=("data", "model"), sizes=(16, 16))
+
+
+def mesh_ctx(mesh: Mesh, rules=None, num_groups: Optional[int] = None):
+    """The layers' ``SpmdCtx`` on ``mesh``'s groups: one token group a data
+    rank (or ``num_groups``), a link instance a model rank, ``rules``
+    (default: ``repro``'s ``default_rules`` for the mesh, FSDP on)."""
+    from repro_torch.models.layers.moe import SpmdCtx
+    from repro_torch.models.param import default_rules
+
+    pods = mesh.shape.get("pod", 1)
+    return SpmdCtx(num_groups=dp_size(mesh) if num_groups is None else num_groups,
+                   num_ep_shards=model_size(mesh), group=mesh.group, ep_group=mesh.ep_group,
+                   rules=default_rules(multi_pod="pod" in mesh.shape) if rules is None else rules,
+                   pods=pods, world_group=mesh.world)
 
 
 def dp_axes(multi_pod: bool) -> Tuple[str, ...]:
-    if multi_pod:
-        raise NotImplementedError(_MULTI_GPU)
-    return ("data",)
+    return ("pod", "data") if multi_pod else ("data",)
 
 
 def dp_size(mesh: Mesh) -> int:
@@ -110,20 +134,23 @@ def init_ranks(
     world: int,
     *,
     device: torch.device,
-    init_method: str,
+    init_method: Optional[str],
     backend: Optional[str] = None,
     model: int = 1,
+    pod: int = 1,
 ) -> Mesh:
     """``init_process_group`` for rank ``rank`` of ``world`` on ``device``;
-    returns the mesh (data ``world / model``, model ``model``) with its two
-    groups (see the module docstring), made by ``new_group`` on every rank
-    in the same order (the whole world where a group spans it).
-    ``backend`` defaults to ``backend_for(device)``: naming ``gloo`` for
-    CUDA tensors puts several ranks on one card (gloo stages each
-    collective through the host).  NCCL takes a card a rank and raises when
-    the ranks outnumber the cards."""
-    if model < 1 or world % model:
-        raise ValueError(f"a model axis of {model} does not divide {world} ranks")
+    returns the mesh (pod ``pod``, data ``world / (pod · model)``, model
+    ``model``; no pod axis where ``pod`` is 1) with its three groups (see
+    the module docstring), made by ``new_group`` on every rank in the same
+    order (the whole world where a group spans it).  ``backend`` defaults
+    to ``backend_for(device)``: naming ``gloo`` for CUDA tensors puts
+    several ranks on one card (gloo stages each collective through the
+    host).  NCCL takes a card a rank and raises when the ranks outnumber
+    the cards.  ``fake`` needs no ``init_method`` and no device: the
+    process is rank ``rank`` alone."""
+    if model < 1 or pod < 1 or world % (model * pod):
+        raise ValueError(f"a model axis of {model} over {pod} pod(s) does not divide {world} ranks")
     backend = backend or backend_for(device)
     if backend == "nccl":
         cards = torch.cuda.device_count()
@@ -133,16 +160,26 @@ def init_ranks(
                 f"this machine has {cards} card(s); run at most {cards} ranks, or gloo"
             )
         torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
-    data = world // model
+    if backend == "fake":
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    else:
+        dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
+    dp = world // model
     groups = {}
-    for kind, members in (("model", [[d * model + m for m in range(model)] for d in range(data)]),
-                          ("data", [[d * model + m for d in range(data)] for m in range(model)])):
+    for kind, members in (("model", [[q * model + m for m in range(model)] for q in range(dp)]),
+                          ("data", [[q * model + m for q in range(dp)] for m in range(model)])):
         for ranks in members:
             g = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
             if rank in ranks:
                 groups[kind] = g
-    return Mesh(sizes=(data, model), group=groups["data"], rank=rank, ep_group=groups["model"])
+    if pod > 1:
+        axes, sizes = ("pod", "data", "model"), (pod, dp // pod, model)
+    else:
+        axes, sizes = ("data", "model"), (dp, model)
+    return Mesh(axes=axes, sizes=sizes, group=groups["data"], rank=rank, ep_group=groups["model"],
+                world=dist.group.WORLD)
 
 
 def torchrun_env() -> Optional[Tuple[int, int, int]]:

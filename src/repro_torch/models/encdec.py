@@ -13,9 +13,11 @@ to the first S frames only (S the prompt length) and so leaves its own
 uncached forward whenever S < ``encoder_len``; the port computes the
 uncached function on both paths.
 
-Under a model group (``group``) the layers hold the rank's heads, ffn
-width and vocabulary rows as in ``transformer`` (the tied table serves the
-embedding and the logits), and the caches the rank's kv heads.
+Under a model group (``ctx.ep_group``) the layers hold the rank's heads,
+ffn width and vocabulary rows as in ``transformer`` (the tied table serves
+the embedding and the logits), and the caches the rank's kv heads.  Under
+FSDP each layer gathers its data-sliced leaves inside the function that
+``checkpoint`` wraps, as ``transformer``'s blocks do.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import distributed
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config.base import ArchConfig
+from repro_torch.models import fsdp
 from repro_torch.models.layers import basic
 from repro_torch.models.layers.attention import (
     attention_apply,
@@ -88,16 +91,21 @@ def model_specs(cfg: ArchConfig) -> Dict:
     }
 
 
-def encode(params: Dict, frames: torch.Tensor, cfg: ArchConfig, group: distributed.Group = None) -> torch.Tensor:
+def encode(params: Dict, frames: torch.Tensor, cfg: ArchConfig, ctx: SpmdCtx = SpmdCtx()) -> torch.Tensor:
     """frames: (B, T_enc, d) stubbed frame embeddings → (B, T_enc, d).
     Bidirectional self-attention layers; with ``cfg.remat`` and grad on,
-    each layer runs under ``torch.utils.checkpoint``."""
+    each layer runs under ``torch.utils.checkpoint`` (its FSDP gathers
+    inside, as ``transformer``'s blocks)."""
+    group = ctx.ep_group
+    plan = fsdp.plan(model_specs(cfg), ctx)
+    layer_plan = fsdp.unstacked(plan["enc_blocks"])["l0"]
     dtype = model_dtype(cfg)
     T = frames.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=frames.device)
     x = frames.to(dtype) + sinusoidal(positions, cfg.d_model, dtype)
 
     def layer(lp: Dict, x: torch.Tensor) -> torch.Tensor:
+        lp = fsdp.gather(lp, layer_plan, ctx)
         h = basic.norm_apply(lp["norm1"], x, cfg.norm)
         a, _ = attention_apply(lp["attn"], h, cfg=cfg, positions=positions, causal=False, group=group)
         x = x + a
@@ -110,7 +118,7 @@ def encode(params: Dict, frames: torch.Tensor, cfg: ArchConfig, group: distribut
             x = checkpoint(layer, bp["l0"], x, use_reentrant=False, preserve_rng_state=False)
         else:
             x = layer(bp["l0"], x)
-    return basic.norm_apply(params["enc_final_norm"], x, cfg.norm)
+    return basic.norm_apply(fsdp.gather(params["enc_final_norm"], plan["enc_final_norm"], ctx), x, cfg.norm)
 
 
 def decode_state_init(
@@ -161,11 +169,15 @@ def forward(
     positions = start + torch.arange(S, dtype=torch.int32, device=dev)
     group = ctx.ep_group
     vocab = vocab_group(params, cfg, ctx)
-    x = basic.embed_apply(params["embed"], tokens, dtype, vocab)
+    plan = fsdp.plan(model_specs(cfg), ctx)
+    layer_plan = fsdp.unstacked(plan["blocks"])["l0"]
+    embed = fsdp.gather(params["embed"], plan["embed"], ctx)
+    x = basic.embed_apply(embed, tokens, dtype, vocab)
     x = x + sinusoidal(positions, cfg.d_model, dtype)
     hd = cfg.head_dim_
 
     def layer(b: int, lp: Dict, x: torch.Tensor) -> torch.Tensor:
+        lp = fsdp.gather(lp, layer_plan, ctx)
         h = basic.norm_apply(lp["norm1"], x, cfg.norm)
         if decode_state is not None:
             a, _ = attention_apply(
@@ -211,8 +223,8 @@ def forward(
             x = checkpoint(layer, b, bp["l0"], x, use_reentrant=False, preserve_rng_state=False)
         else:
             x = layer(b, bp["l0"], x)
-    x = basic.norm_apply(params["final_norm"], x, cfg.norm)
-    logits = basic.logits_apply(params["embed"], x, cfg.vocab_size, vocab)
+    x = basic.norm_apply(fsdp.gather(params["final_norm"], plan["final_norm"], ctx), x, cfg.norm)
+    logits = basic.logits_apply(embed, x, cfg.vocab_size, vocab)
 
     aux: Dict[str, Any] = {"metrics": {}}
     if decode_state is not None:

@@ -43,7 +43,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config.base import ArchConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers.basic import norm_apply
-from repro_torch.models.param import local_shape, spec
+from repro_torch.models.param import layer_shape, spec
 
 #: (states (C, H, P, N), decay (C, H)) → (C, H, P, N) float32 exclusive prefix.
 Scan = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -97,14 +97,14 @@ def mamba_heads_of(cfg: ArchConfig, heads: int, rank: int) -> Tuple[int, int]:
         "no slice for (ROADMAP.md queue A)")
 
 
-def mamba_layout(cfg: ArchConfig, model: int, rules) -> Tuple[int, int, int]:
-    """(heads, inner width, B/C groups) a rank holds under a model axis of
-    ``model`` and ``rules``; heads and width that are not sliced together
-    raise."""
+def mamba_layout(cfg: ArchConfig, mesh, rules) -> Tuple[int, int, int]:
+    """(heads, inner width, B/C groups) a rank of ``mesh`` (``{axis:
+    size}``) uses under ``rules``; heads and width that are not sliced
+    together raise."""
     d, di, nh, hd, g, n = _dims(cfg)
     specs = mamba_specs(cfg)
-    heads = local_shape(specs["w_dt"], model, rules)[-1]
-    width = local_shape(specs["w_x"], model, rules)[-1]
+    heads = layer_shape(specs["w_dt"], mesh, rules)[-1]
+    width = layer_shape(specs["w_x"], mesh, rules)[-1]
     if width != heads * hd:
         raise NotImplementedError(
             f"the rule table gives a rank {heads} of {nh} Mamba heads but {width} of {di} inner "
@@ -367,7 +367,7 @@ def mamba_state_init(
     ``moe.SpmdCtx``) the rank's heads and B/C groups."""
     d, di, nh, hd, g, n = _dims(cfg)
     if ctx is not None and ctx.ep_group is not None:
-        nh, di, g = mamba_layout(cfg, ctx.num_ep_shards, ctx.rules)
+        nh, di, g = mamba_layout(cfg, ctx.mesh, ctx.rules)
     w = cfg.mamba.conv_width
     device = resolve_device(device)
     return {

@@ -72,7 +72,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_state_scan_ref
 from repro_torch.kernels.topk_gating import ops as gating_ops
 from repro_torch.kernels.topk_gating.ref import topk_gating_ref
-from repro_torch.models.param import Rules, default_rules, spec
+from repro_torch.models.param import Rules, model_rules, spec
 from repro_torch.models.perf_flags import get_flags
 
 
@@ -82,20 +82,51 @@ class SpmdCtx:
 
     num_groups: int = 1        # token groups over all data-parallel ranks
     num_ep_shards: int = 1     # expert-parallel shards (link instances)
-    group: Any = None          # the data-parallel ProcessGroup (None: one process)
+    group: Any = None          # the data group, over (pod, data) (None: one process)
     ep_group: Any = None       # the model group the parameters are sharded over
-    #: The rule table of the model group's layout (``param.default_rules()``
-    #: where None): which leaves a rank holds a slice of.
+    #: The rule table of the mesh's layout (``param.model_rules()`` where
+    #: None: the model axis alone): which leaves a rank holds a slice of.
     rules: Optional[Rules] = None
+    #: The pods the data group spans (``mesh``'s ``pod`` axis where > 1).
+    pods: int = 1
+    #: Every rank in mesh order: the fused (data, model) slices' gathers
+    #: (H6).
+    world_group: Any = None
+    #: The data group where the batch is replicated over it (``group``
+    #: None, ``repro``'s ``batch_axes=()``): it then only gathers FSDP's
+    #: leaves.
+    fsdp_group: Any = None
 
     def __post_init__(self):
         if self.rules is None:
-            object.__setattr__(self, "rules", default_rules())
+            object.__setattr__(self, "rules", model_rules())
         if self.ep_group is not None and distributed.world_size(self.ep_group) != self.num_ep_shards:
             raise ValueError(
                 f"num_ep_shards={self.num_ep_shards} against a model group of "
                 f"{distributed.world_size(self.ep_group)} rank(s): each rank holds one shard"
             )
+
+    @property
+    def data_group(self) -> Any:
+        """The group FSDP gathers over."""
+        return self.group if self.fsdp_group is None else self.fsdp_group
+
+    @property
+    def mesh(self) -> Dict[str, int]:
+        """The mesh's axes and sizes as the groups give them."""
+        dp = distributed.world_size(self.data_group)
+        out = {"pod": self.pods, "data": dp // self.pods} if self.pods > 1 else {"data": dp}
+        out["model"] = distributed.world_size(self.ep_group)
+        return out
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's index on each axis of ``mesh``: its data group's
+        index splits into (pod, data)."""
+        mesh = self.mesh
+        dp = distributed.rank_of(self.data_group)
+        out = {"pod": dp // mesh["data"], "data": dp % mesh["data"]} if "pod" in mesh else {"data": dp}
+        return dict(out, model=distributed.rank_of(self.ep_group))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,10 @@
 """Unified model API: specs / init / loss / prefill / decode per family,
 for all ten architectures of the registry.
 
-Under a model group (``SpmdCtx.ep_group``) ``init`` and
+On a mesh (``SpmdCtx``'s groups) ``init``, ``abstract_params`` and
 ``decode_state_init`` give a rank the slices its rule table
-(``SpmdCtx.rules``) names, and every family runs on them.  Where the
+(``SpmdCtx.rules``) names, over the data axes (FSDP) and the model axis,
+and every family runs on them.  Where the
 tables are sliced, ``prefill`` and ``decode_step`` return the last
 position's logits over the whole vocabulary, (B, 1, V), gathered from the
 ranks' columns, as ``repro``'s ``make_prefill_step`` keeps the last
@@ -16,7 +17,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import distributed
 from repro_torch._device import DeviceLike
 from repro_torch.config.base import ArchConfig
 from repro_torch.models import encdec, transformer
@@ -40,19 +40,17 @@ class Model:
 
     def init(self, generator: torch.Generator, dtype=None, device: DeviceLike = None,
              ctx: SpmdCtx = SpmdCtx()) -> Dict:
-        """Parameters drawn from ``generator``; with a model group
-        (``ctx.ep_group``) each leaf that ``ctx.rules`` slices holds this
-        rank's slice."""
+        """Parameters drawn from ``generator``; on ``ctx``'s mesh each leaf
+        that ``ctx.rules`` slices holds this rank's slices."""
         dt = dtype if dtype is not None else transformer.model_dtype(self.cfg)
-        shard = (distributed.rank_of(ctx.ep_group), distributed.world_size(ctx.ep_group))
-        return tree_materialize(self.specs(), generator, dtype_override=dt, device=device, shard=shard,
-                                rules=ctx.rules)
+        return tree_materialize(self.specs(), generator, dtype_override=dt, device=device, mesh=ctx.mesh,
+                                coords=ctx.coords, rules=ctx.rules)
 
-    def abstract_params(self, dtype=None) -> Dict:
+    def abstract_params(self, dtype=None, ctx: SpmdCtx = SpmdCtx()) -> Dict:
         """The parameters as ``meta`` tensors (for the dry-run): the
-        shapes and dtypes of ``init``, no generator drawn."""
+        shapes and dtypes of ``init`` at ``ctx``, no generator drawn."""
         dt = dtype if dtype is not None else transformer.model_dtype(self.cfg)
-        return tree_abstract(self.specs(), dtype_override=dt)
+        return tree_abstract(self.specs(), dtype_override=dt, mesh=ctx.mesh, rules=ctx.rules)
 
     def num_params(self) -> int:
         return tree_num_params(self.specs())
@@ -76,7 +74,7 @@ class Model:
         ranks' gradients sum to the global batch's."""
         cfg = self.cfg
         if cfg.family == "encdec":
-            enc_out = encdec.encode(params, batch["frames"], cfg, ctx.ep_group)
+            enc_out = encdec.encode(params, batch["frames"], cfg, ctx)
             logits, aux = encdec.forward(params, batch["tokens"], cfg=cfg, enc_out=enc_out, ctx=ctx)
         else:
             logits, aux = transformer.forward(
@@ -116,7 +114,7 @@ class Model:
         position's, (B, 1, V)."""
         cfg = self.cfg
         if cfg.family == "encdec":
-            enc_out = encdec.encode(params, inputs["frames"], cfg, ctx.ep_group)
+            enc_out = encdec.encode(params, inputs["frames"], cfg, ctx)
             logits, aux = encdec.forward(
                 params, inputs["tokens"], cfg=cfg, enc_out=enc_out, decode_state=state, ctx=ctx,
             )

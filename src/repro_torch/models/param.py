@@ -9,19 +9,22 @@ its mesh axes do not divide falls back to replication (what lets MQA's
 single kv head or starcoder2's 2 kv heads run on a wider model axis), and
 a mesh axis is used at most once a leaf, the first named axis winning.
 
-The port's mesh shards over its ``model`` axis only.  ``default_rules`` is
-``repro``'s table with ``embed`` / ``expert_embed`` → None: FSDP over
-``data`` is ``ROADMAP.md`` queue A, and a table that names another mesh
-axis than ``model`` raises.  Under a model group of M ranks, rank m holds
-slice m of the axis that a leaf's resolved spec puts on ``model``
-(``shard_axes``, ``slice_shards``): ``experts`` of the expert stacks,
-``heads`` / ``kv_heads`` of attention, ``mlp`` of the dense ffn and of
-Mamba's inner width, ``vocab`` of the tables, ``ssm_heads`` of Mamba's
-per-head leaves.  ``expert_rules`` is the experts-only layout
-(``repro``'s H6 table less FSDP and less the vocab rule).  The router's
-``experts`` axis follows ``embed`` there, and stays whole whatever the
-table: its softmax and top-k need all E logits (``expert_axis``).
-``tree_abstract`` builds a spec tree as ``meta`` tensors, which the
+``default_rules`` is ``repro``'s table: FSDP of ``embed`` /
+``expert_embed`` over ``data`` (``("pod", "data")`` for two pods) and the
+model axis for ``experts``, ``heads`` / ``kv_heads``, ``mlp``, ``vocab``
+and ``ssm_heads``.  On a mesh ``{axis: size}`` a rank holds, of each leaf,
+the slices ``leaf_slices`` names: each sliced dimension with the mesh axes
+it is sliced over, over ``data`` on its d_model, over ``model`` on another
+dimension, over both on two dimensions, or over the fused ``(data,
+model)`` on one (H6), the slice index in mixed radix, data-major
+(``slice_index``).  ``shard_axes`` / ``slice_shards`` /
+``tree_materialize`` cut whole leaves to a rank's slices.  The forward
+gathers the data-sliced dimensions first (``models/fsdp.py``), so a layer
+sees ``layer_shape``: whole over data, sliced over model.
+``model_rules`` is the model axis alone (``embed`` whole) and
+``expert_rules`` the experts-only layout.  The router's ``experts`` axis
+stays whole whatever the table: its softmax and top-k need all E logits.
+``tree_abstract`` builds a rank's leaves as ``meta`` tensors, which the
 dry-run traces where ``repro`` lowers ``ShapeDtypeStruct``s: shapes and
 dtypes, nothing allocated.
 """
@@ -77,13 +80,15 @@ def tree_leaves(tree: Any) -> List[Any]:
     return out
 
 
-def default_rules() -> Dict[Optional[str], MeshAxes]:
-    """``repro``'s ``default_rules(multi_pod=False)`` as the port carries
-    it: every model-axis rule, and ``embed`` / ``expert_embed`` → None
-    (FSDP over ``data`` is ``ROADMAP.md`` queue A)."""
+def default_rules(multi_pod: bool = False) -> Dict[Optional[str], MeshAxes]:
+    """``repro``'s ``default_rules(multi_pod)``: FSDP of every weight's
+    d_model dimension over ``data`` (``("pod", "data")`` for two pods),
+    and the model axis for heads, kv heads, the ffn's width, the
+    vocabulary, the experts and Mamba's heads."""
+    fsdp: MeshAxes = ("pod", "data") if multi_pod else ("data",)
     return {
-        "embed": None,
-        "expert_embed": None,
+        "embed": fsdp,
+        "expert_embed": fsdp,
         "vocab": "model",
         "heads": "model",
         "kv_heads": "model",
@@ -95,10 +100,16 @@ def default_rules() -> Dict[Optional[str], MeshAxes]:
     }
 
 
+def model_rules() -> Dict[Optional[str], MeshAxes]:
+    """The model axis alone: ``default_rules`` with ``embed`` /
+    ``expert_embed`` whole (no FSDP)."""
+    return dict(default_rules(), embed=None, expert_embed=None)
+
+
 def expert_rules() -> Dict[Optional[str], MeshAxes]:
     """The experts-only layout: ``experts`` → ``model`` and every other axis
     whole."""
-    return {ax: (rule if ax == "experts" else None) for ax, rule in default_rules().items()}
+    return {ax: (rule if ax == "experts" else None) for ax, rule in model_rules().items()}
 
 
 def resolve_pspec(p: ParamSpec, mesh: Mapping[str, int], rules: Rules) -> Tuple[MeshAxes, ...]:
@@ -142,43 +153,90 @@ def expert_axes(tree: Any, prefix: str = "") -> Dict[str, int]:
     return {} if axis is None else {prefix[:-1]: axis}
 
 
-def model_axis(p: ParamSpec, model: int, rules: Rules) -> Optional[int]:
-    """The axis of ``p`` that a model axis of ``model`` ranks slices under
-    ``rules`` (None: the leaf is whole on every rank).  A rule naming
-    another mesh axis than ``model`` raises: the port shards nothing else
-    yet."""
+#: One sliced dimension of a leaf: (dim, the mesh axes it is sliced over,
+#: outermost first).  A rank holds slice ``slice_index`` of ``slice_size``.
+Slice = Tuple[int, Tuple[str, ...]]
+#: The data-parallel axes, outermost first: a rank's data group spans them.
+DP_AXES = ("pod", "data")
+
+
+def dp_part(axes: Sequence[str]) -> Tuple[str, ...]:
+    return tuple(a for a in axes if a in DP_AXES)
+
+
+def leaf_slices(p: ParamSpec, mesh: Mapping[str, int], rules: Rules) -> Tuple[Slice, ...]:
+    """The dimensions of ``p`` that a rank of ``mesh`` holds a slice of
+    under ``rules`` (``resolve_pspec``; a dimension over mesh axes of one
+    rank in all left out), each with its mesh axes.  The router's ``experts`` axis stays whole: its
+    softmax and top-k need all E logits.  A rule naming a mesh axis that
+    ``mesh`` lacks raises, and so does a slice over part of the data axes
+    (``data`` without ``pod``): a rank's data group spans them all."""
     for ax in p.axes:
         names = rules.get(ax, None)
         names = () if names is None else (names,) if isinstance(names, str) else tuple(names)
-        if any(n != "model" for n in names):
+        missing = [n for n in names if n not in mesh]
+        if missing:
+            raise ValueError(f"the rule {ax!r} → {rules[ax]!r} names mesh axes {missing} that the mesh "
+                             f"{dict(mesh)} lacks")
+    router = "experts" in p.axes and expert_axis(p) is None
+    dp = tuple(a for a in DP_AXES if mesh.get(a, 1) > 1)
+    out: List[Slice] = []
+    for dim, names in enumerate(resolve_pspec(p, mesh, rules)):
+        if names is None or (router and p.axes[dim] == "experts"):
+            continue
+        names = (names,) if isinstance(names, str) else names
+        if slice_size(names, mesh) == 1:
+            continue
+        if dp_part(names) and tuple(a for a in dp_part(names) if mesh[a] > 1) != dp:
             raise NotImplementedError(
-                f"the rule {ax!r} → {rules[ax]!r} names a mesh axis the port does not shard over: "
-                "FSDP over the data group is ROADMAP.md queue A")
-    if model == 1 or ("experts" in p.axes and expert_axis(p) is None):
-        # The router: its experts axis is its output, whole on every rank.
-        return None
-    spec = resolve_pspec(p, {"model": model}, rules)
-    return next((i for i, names in enumerate(spec) if names is not None), None)
+                f"{p.axes[dim]!r} sliced over {names} on a mesh {dict(mesh)}: a rank's data group spans {dp}")
+        out.append((dim, names))
+    return tuple(out)
 
 
-def shard_axes(tree: Any, model: int, rules: Rules, prefix: str = "") -> Dict[str, int]:
-    """{``/``-joined key path: axis} of the spec tree's leaves that a model
-    axis of ``model`` ranks slices under ``rules``."""
+def slice_size(axes: Sequence[str], mesh: Mapping[str, int]) -> int:
+    return math.prod(mesh[a] for a in axes)
+
+
+def slice_index(axes: Sequence[str], mesh: Mapping[str, int], coords: Mapping[str, int]) -> int:
+    """A rank's slice over ``axes``: its coordinates in mixed radix, the
+    first axis outermost (``PartitionSpec(("data", "model"))`` orders a
+    fused dimension ``d·M + m``)."""
+    index = 0
+    for a in axes:
+        index = index * mesh[a] + coords.get(a, 0)
+    return index
+
+
+def shard_axes(tree: Any, mesh: Mapping[str, int], rules: Rules, prefix: str = "") -> Dict[str, Tuple[Slice, ...]]:
+    """{``/``-joined key path: its ``leaf_slices``} of the spec tree's
+    leaves that a rank of ``mesh`` holds a slice of under ``rules``."""
     if isinstance(tree, dict):
-        out: Dict[str, int] = {}
+        out: Dict[str, Tuple[Slice, ...]] = {}
         for k in sorted(tree):
-            out.update(shard_axes(tree[k], model, rules, f"{prefix}{k}/"))
+            out.update(shard_axes(tree[k], mesh, rules, f"{prefix}{k}/"))
         return out
-    axis = model_axis(tree, model, rules)
-    return {} if axis is None else {prefix[:-1]: axis}
+    slices = leaf_slices(tree, mesh, rules)
+    return {prefix[:-1]: slices} if slices else {}
 
 
-def local_shape(p: ParamSpec, model: int, rules: Rules) -> Tuple[int, ...]:
+def sliced_shape(shape: Sequence[int], slices: Sequence[Slice], mesh: Mapping[str, int]) -> Tuple[int, ...]:
+    out = list(shape)
+    for dim, axes in slices:
+        out[dim] //= slice_size(axes, mesh)
+    return tuple(out)
+
+
+def local_shape(p: ParamSpec, mesh: Mapping[str, int], rules: Rules) -> Tuple[int, ...]:
     """The shape of a rank's slice of ``p``."""
-    axis = model_axis(p, model, rules)
-    if axis is None:
-        return p.shape
-    return p.shape[:axis] + (p.shape[axis] // model,) + p.shape[axis + 1:]
+    return sliced_shape(p.shape, leaf_slices(p, mesh, rules), mesh)
+
+
+def layer_shape(p: ParamSpec, mesh: Mapping[str, int], rules: Rules) -> Tuple[int, ...]:
+    """The shape a layer sees: whole over the data axes, which the forward
+    gathers first (``models/fsdp.py``), a slice of what the model axis
+    alone slices."""
+    return sliced_shape(p.shape, [s for s in leaf_slices(p, mesh, rules) if not dp_part(s[1])], mesh)
 
 
 def take_shard(a: Any, axis: int, rank: int, size: int) -> Any:
@@ -186,7 +244,7 @@ def take_shard(a: Any, axis: int, rank: int, size: int) -> Any:
     ``axis``, of ``size`` equal slices: a view."""
     whole = a.shape[axis]
     if whole % size:
-        raise ValueError(f"a model axis of {size} does not divide {whole} (axis {axis} of {tuple(a.shape)})")
+        raise ValueError(f"a mesh axis of {size} does not divide {whole} (axis {axis} of {tuple(a.shape)})")
     n = whole // size
     return a[(slice(None),) * axis + (slice(rank * n, (rank + 1) * n),)]
 
@@ -198,15 +256,23 @@ def expert_shard(a: Any, axis: int, rank: int, size: int) -> Any:
     return take_shard(a, axis, rank, size)
 
 
-def slice_shards(tree: Any, axes: Dict[str, int], rank: int, size: int, prefix: str = "") -> Any:
-    """``tree`` (tensors or arrays, keyed as the spec tree of ``axes``)
-    with each leaf that ``axes`` names cut to rank ``rank``'s slice along
-    its axis, of a model axis of ``size`` (views); the other leaves as they
-    are."""
+def take_slices(a: Any, slices: Sequence[Slice], mesh: Mapping[str, int], coords: Mapping[str, int]) -> Any:
+    """The rank at ``coords``'s slice of ``a`` along each of ``slices``: a
+    view."""
+    for dim, axes in slices:
+        a = take_shard(a, dim, slice_index(axes, mesh, coords), slice_size(axes, mesh))
+    return a
+
+
+def slice_shards(tree: Any, axes: Mapping[str, Tuple[Slice, ...]], mesh: Mapping[str, int],
+                 coords: Mapping[str, int], prefix: str = "") -> Any:
+    """``tree`` (tensors or arrays, keyed as the spec tree of ``axes``,
+    ``shard_axes``' map) with each leaf that ``axes`` names cut to the
+    rank at ``coords``'s slices (views); the other leaves as they are."""
     if isinstance(tree, dict):
-        return {k: slice_shards(tree[k], axes, rank, size, f"{prefix}{k}/") for k in tree}
-    axis = axes.get(prefix[:-1])
-    return tree if axis is None else take_shard(tree, axis, rank, size)
+        return {k: slice_shards(tree[k], axes, mesh, coords, f"{prefix}{k}/") for k in tree}
+    slices = axes.get(prefix[:-1])
+    return tree if not slices else take_slices(tree, slices, mesh, coords)
 
 
 def tree_materialize(
@@ -214,17 +280,18 @@ def tree_materialize(
     generator: torch.Generator,
     dtype_override: Any = None,
     device: DeviceLike = None,
-    shard: Tuple[int, int] = (0, 1),
+    mesh: Optional[Mapping[str, int]] = None,
+    coords: Optional[Mapping[str, int]] = None,
     rules: Optional[Rules] = None,
 ) -> Any:
     """Real initialization: normal leaves are drawn in float32 from
     ``generator`` on the generator's own device, leaf by leaf in sorted
     key order, scaled by ``scale`` or 1/sqrt(fan_in), then cast and put on
     ``device`` (a host generator gives the same weights on every device).
-    ``shard`` = (model rank, model axis): each leaf that ``rules``
-    (default ``default_rules()``) slices is drawn whole and sliced to the
-    rank's part, so a rank's shard is the slice of the one-process init at
-    the same seed."""
+    With ``mesh`` (``{axis: size}``) each leaf that ``rules`` (default
+    ``default_rules()``) slices is drawn whole and cut to the slices of the
+    rank at ``coords``, so a rank's leaves are slices of the one-process
+    init at the same seed."""
     rules = default_rules() if rules is None else rules
     dev = resolve_device(device)
 
@@ -238,20 +305,25 @@ def tree_materialize(
             fan_in = p.shape[0] if len(p.shape) >= 2 else max(p.shape[-1], 1)
             scale = p.scale if p.scale is not None else 1.0 / math.sqrt(fan_in)
             out = scale * torch.randn(p.shape, generator=generator, dtype=torch.float32, device=generator.device)
-        axis = model_axis(p, shard[1], rules)
-        if axis is not None:
-            out = take_shard(out, axis, *shard).clone()
+        slices = leaf_slices(p, mesh, rules) if mesh is not None else ()
+        if slices:
+            out = take_slices(out, slices, mesh, coords or {}).clone()
         return out.to(device=dev, dtype=dt)
 
     return tree_map(make, tree)
 
 
-def tree_abstract(tree: Any, dtype_override: Any = None) -> Any:
-    """``meta`` tensors of every leaf's shape and dtype (or
+def tree_abstract(tree: Any, dtype_override: Any = None, mesh: Optional[Mapping[str, int]] = None,
+                  rules: Optional[Rules] = None) -> Any:
+    """``meta`` tensors of every leaf's shape (a rank's slice under
+    ``mesh`` and ``rules``, as ``tree_materialize``) and dtype (or
     ``dtype_override``): no allocation, no generator."""
+    rules = default_rules() if rules is None else rules
+
     def make(p: ParamSpec) -> torch.Tensor:
         dt = dtype_override if dtype_override is not None else p.dtype
-        return torch.empty(p.shape, dtype=dt, device="meta")
+        shape = local_shape(p, mesh, rules) if mesh is not None else p.shape
+        return torch.empty(shape, dtype=dt, device="meta")
 
     return tree_map(make, tree)
 

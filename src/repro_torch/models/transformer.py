@@ -15,7 +15,13 @@ included, from the same inputs.
 Under a model group (``SpmdCtx.ep_group``) each layer holds what the rule
 table (``SpmdCtx.rules``) gives a rank and runs on its part, the residual
 stream replicated over the group between layers (the MoE layer's input
-too).  The logits are then the rank's vocabulary columns: ``lm_loss``
+too).  Under FSDP (the table's ``embed`` / ``expert_embed`` on the data
+axes) each block gathers its data-sliced leaves over the data group at the
+top of the function that ``checkpoint`` wraps, so remat's recompute
+gathers again and no whole weight is saved for the backward; the
+embedding table, the final norm and ``lm_head`` are gathered where they
+are used (a tied table once for both).  Serving gathers each block once a
+prefill and once a decode step.  The logits are then the rank's vocabulary columns: ``lm_loss``
 reduces the max, the sum of exps and the gold logit over the group, and
 serving gathers only the last position's (``vocab_group``).
 """
@@ -52,7 +58,8 @@ from repro_torch.models.layers.moe import (
     moe_specs,
     moe_state_init,
 )
-from repro_torch.models.param import ParamSpec, local_shape, spec, tree_map
+from repro_torch.models import fsdp
+from repro_torch.models.param import ParamSpec, layer_shape, spec, tree_map
 
 _DTYPES = {
     "float32": torch.float32,
@@ -168,10 +175,9 @@ def kv_heads_held(cfg: ArchConfig, ctx: SpmdCtx) -> int:
     ``ctx``'s model group and rule table."""
     if cfg.num_heads == 0:
         return 0
-    M = ctx.num_ep_shards if ctx.ep_group is not None else 1
     att = attention_specs(cfg)
-    heads = local_shape(att["wq"], M, ctx.rules)[1]
-    width = local_shape(att["wk"], M, ctx.rules)[1]
+    heads = layer_shape(att["wq"], ctx.mesh, ctx.rules)[1]
+    width = layer_shape(att["wk"], ctx.mesh, ctx.rules)[1]
     return kv_heads_of(cfg, heads, width, 0)[1]
 
 
@@ -337,8 +343,11 @@ def forward(
     dtype = model_dtype(cfg)
     dev = tokens.device
     vocab = vocab_group(params, cfg, ctx)
+    plan = fsdp.plan(model_specs(cfg), ctx)
+    block_plan = fsdp.unstacked(plan["blocks"])
 
-    x = basic.embed_apply(params["embed"], tokens, dtype, vocab)
+    embed = fsdp.gather(params["embed"], plan["embed"], ctx)
+    x = basic.embed_apply(embed, tokens, dtype, vocab)
     if prefix_embeds is not None:
         P = prefix_embeds.shape[1]
         if S < P:
@@ -367,6 +376,9 @@ def forward(
     moe_pos = moe_layer_positions(cfg)
 
     def block(b: int, bp: Dict, x: torch.Tensor, moe_in: Dict):
+        # Inside the checkpointed function: remat's recompute gathers
+        # again, and no whole weight is saved for the backward.
+        bp = fsdp.gather(bp, block_plan, ctx)
         metrics: Dict[str, torch.Tensor] = {}
         out_moe = {}
         for j in range(period):
@@ -404,8 +416,8 @@ def forward(
         block_metrics.append(metrics)
         block_moe.append(out_moe)
 
-    x = basic.norm_apply(params["final_norm"], x, cfg.norm)
-    head = params.get("lm_head", params["embed"])
+    x = basic.norm_apply(fsdp.gather(params["final_norm"], plan["final_norm"], ctx), x, cfg.norm)
+    head = fsdp.gather(params["lm_head"], plan["lm_head"], ctx) if "lm_head" in params else embed
     logits = basic.logits_apply(head, x, cfg.vocab_size, vocab)
 
     aux: Dict[str, Any] = {

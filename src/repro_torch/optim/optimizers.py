@@ -6,28 +6,30 @@ tensors), and an update writes each parameter back in its own dtype, as
 ``repro.optim.optimizers`` does: there is no float32 master copy.  Every
 function here works on values, under ``torch.no_grad``.
 
-Under a model group (``Shards``) a sliced leaf holds this rank's slice
-of the whole leaf along one axis.  What reads a whole leaf sums its slices
-over the group: the global norm (one ``all_reduce`` of the sliced leaves'
-sums of squares; the replicated leaves are counted once, as every rank
-holds them whole) and Adafactor's update RMS (one ``all_reduce`` a sliced
-leaf).  Adafactor factors over the last two dims of the WHOLE leaf (and
-decides ``_factored`` on its whole shape): where the sliced axis is one of
-them, the row and column means across it are summed over the group.
-AdamW is element-wise and needs nothing.
+On a mesh (``Shards``) a sliced leaf holds this rank's slice of the whole
+leaf along each sliced dimension: over the data axes (FSDP), the model
+axis, both on two dimensions, or the fused (data, model) on one.  What
+reads a whole leaf sums its slices over exactly the ranks that slice it:
+the global norm (one ``all_reduce`` of the sliced leaves' sums of squares
+a span, over the model group, the data group or both; the replicated
+leaves are counted once, as every rank holds them whole) and Adafactor's
+update RMS.  Adafactor factors over the last two dims of the WHOLE leaf
+(and decides ``_factored`` on its whole shape): where a sliced dimension
+is one of them, the row and column means across it are summed over the
+ranks that slice it.  AdamW is element-wise and needs nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import distributed
 from repro_torch.core.ordered_sums import div
-from repro_torch.models.param import tree_leaves
+from repro_torch.models.param import Slice, slice_size, tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,39 +81,63 @@ def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Shards:
-    """The parameter leaves sliced over a model group: ``leaves`` is a tree
-    at the parameters' leaves of the axis a rank holds a slice of (None:
-    the leaf is whole on every rank), ``group`` the model group."""
+    """The parameter leaves sliced over the mesh: ``leaves`` is a tree at
+    the parameters' leaves of each one's ``param.leaf_slices`` (``()``:
+    whole on every rank), ``mesh`` the mesh's sizes, ``group`` the data
+    group (over the pod and data axes) and ``ep_group`` the model group."""
 
     leaves: Any
-    group: Any
+    mesh: Mapping[str, int]
+    group: Any = None
+    ep_group: Any = None
 
-    @property
-    def size(self) -> int:
-        return distributed.world_size(self.group)
+    def size(self, slices: Sequence[Slice]) -> int:
+        """The ranks the slices of one or more dimensions span."""
+        return math.prod(slice_size(axes, self.mesh) for _, axes in slices)
+
+    def sum(self, t: torch.Tensor, slices: Sequence[Slice]) -> torch.Tensor:
+        """``t`` summed over exactly the ranks that ``slices`` span (the
+        model group, the data group, or both: the world), detached."""
+        axes = {a for _, names in slices for a in names}
+        if "model" in axes:
+            t = distributed.all_sum(t, self.ep_group)
+        if axes - {"model"}:
+            t = distributed.all_sum(t, self.group)
+        return t
 
 
 def _slices(params: Any, shards: Optional[Shards]) -> Any:
-    """The sliced axis at each parameter leaf (None everywhere without
+    """Each parameter leaf's slices (``()`` everywhere without
     ``shards``)."""
-    return shards.leaves if shards is not None else zip_map(lambda p: None, params)
+    return shards.leaves if shards is not None else zip_map(lambda p: (), params)
 
 
-def _whole_shape(p: torch.Tensor, axis: Optional[int], shards: Optional[Shards]) -> Tuple[int, ...]:
-    shape = tuple(p.shape)
-    if axis is None:
-        return shape
-    return shape[:axis] + (shape[axis] * shards.size,) + shape[axis + 1:]
+def _whole_shape(p: torch.Tensor, slices: Sequence[Slice], shards: Optional[Shards]) -> Tuple[int, ...]:
+    shape = list(p.shape)
+    for dim, axes in slices:
+        shape[dim] *= slice_size(axes, shards.mesh)
+    return tuple(shape)
+
+
+def _span(slices: Sequence[Slice]) -> Tuple[bool, bool]:
+    """(over the data axes, over the model axis) of a leaf's slices."""
+    axes = {a for _, names in slices for a in names}
+    return bool(axes - {"model"}), "model" in axes
 
 
 def global_norm(tree: Any, shards: Optional[Shards] = None) -> torch.Tensor:
-    """The norm of the whole tree, the leaves added in tree order."""
+    """The norm of the whole tree, the leaves added in tree order: a
+    sliced leaf's sum of squares summed over exactly the ranks that slice
+    it, once (one sum for the leaves of each span)."""
     sq = [torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(tree)]
     if shards is not None:
-        mine = [i for i, axis in enumerate(tree_leaves(shards.leaves)) if axis is not None]
-        if mine:
-            summed = distributed.all_sum(torch.stack([sq[i] for i in mine]), shards.group)
-            for j, i in enumerate(mine):
+        by_span: Dict[Tuple[bool, bool], List[Tuple[int, Tuple[Slice, ...]]]] = {}
+        for i, slices in enumerate(tree_leaves(shards.leaves)):
+            if slices:
+                by_span.setdefault(_span(slices), []).append((i, slices))
+        for _, leaves in sorted(by_span.items()):
+            summed = shards.sum(torch.stack([sq[i] for i, _ in leaves]), [s for _, sl in leaves for s in sl])
+            for j, (i, _) in enumerate(leaves):
                 sq[i] = summed[j]
     return torch.sqrt(sum(sq))
 
@@ -163,9 +189,9 @@ def _factored(shape: Tuple[int, ...], threshold: int) -> bool:
 
 
 def adafactor_init(params: Any, cfg: OptimizerConfig, shards: Optional[Shards] = None) -> Dict:
-    def init_one(p, axis):
+    def init_one(p, slices):
         shape, dev = tuple(p.shape), p.device
-        if _factored(_whole_shape(p, axis, shards), cfg.factored_dim_threshold):
+        if _factored(_whole_shape(p, slices, shards), cfg.factored_dim_threshold):
             return {
                 "vr": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),   # row
                 "vc": torch.zeros(shape[:-2] + shape[-1:], dtype=torch.float32, device=dev),
@@ -185,20 +211,25 @@ def adafactor_update(
 
     def mean(x, dim, across):
         """The mean over ``dim`` (None: all of ``x``); over the whole
-        leaf's (the ranks' slices summed) where ``across``."""
+        leaf's where ``across`` (the slices of that dimension, or of all of
+        the leaf's) names any: the ranks' sums summed over them."""
         if not across:
             return torch.mean(x) if dim is None else torch.mean(x, dim=dim)
-        total = distributed.all_sum(torch.sum(x) if dim is None else torch.sum(x, dim=dim), shards.group)
+        total = shards.sum(torch.sum(x) if dim is None else torch.sum(x, dim=dim), across)
         count = x.numel() if dim is None else x.shape[dim]
-        return total / float(count * shards.size)
+        return total / float(count * shards.size(across))
 
-    def upd(p, g, v, axis):
+    def upd(p, g, v, slices):
         g32 = torch.square(g.to(torch.float32)) + 1e-30
         last = g.ndim - 1
+
+        def of(dim):
+            return [s for s in slices if s[0] == dim]
+
         if "vr" in v:
-            vr = decay * v["vr"] + (1 - decay) * mean(g32, -1, axis == last)
-            vc = decay * v["vc"] + (1 - decay) * mean(g32, -2, axis == last - 1)
-            rfac = vr / torch.clamp(mean(vr, -1, axis == last - 1)[..., None], min=1e-30)
+            vr = decay * v["vr"] + (1 - decay) * mean(g32, -1, of(last))
+            vc = decay * v["vc"] + (1 - decay) * mean(g32, -2, of(last - 1))
+            rfac = vr / torch.clamp(mean(vr, -1, of(last - 1))[..., None], min=1e-30)
             precond = torch.rsqrt(torch.clamp(rfac[..., None] * vc[..., None, :], min=1e-30))
             new_v = {"vr": vr, "vc": vc}
         else:
@@ -207,7 +238,7 @@ def adafactor_update(
             new_v = {"v": vv}
         u = g.to(torch.float32) * precond
         # Update clipping (RMS <= 1), per Adafactor.
-        rms = torch.sqrt(mean(torch.square(u), None, axis is not None) + 1e-30)
+        rms = torch.sqrt(mean(torch.square(u), None, slices) + 1e-30)
         u = u / torch.clamp(rms, min=1.0)
         p32 = p.to(torch.float32)
         delta = u + cfg.weight_decay * p32

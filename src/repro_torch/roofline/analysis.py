@@ -15,7 +15,9 @@ one rank issued (every rank issues the same): each record's wire bytes by
 group's all_reduces, the model group's all-gathers and all_reduces),
 summed by kind, times the chips for the global bytes, as ``repro``
 multiplies its per-device HLO bytes.  A step on one card issues none, and
-its collective terms are 0.
+its collective terms are 0.  The dry-run of a pod's rank counts one
+device's FLOPs and bytes (``analyze(per_device=True)``): times the chips
+for the global terms, so each term is one device's time.
 """
 
 from __future__ import annotations
@@ -152,15 +154,19 @@ def collective_bytes_per_device(records) -> Tuple[float, Dict[str, int]]:
     return sum(by_kind.values()), {k: int(v) for k, v in by_kind.items()}
 
 
-def analyze(cost: Dict, chips: int, model_flops: float) -> RooflineTerms:
+def analyze(cost: Dict, chips: int, model_flops: float, per_device: bool = False) -> RooflineTerms:
     """Roofline terms from ``op_cost.trace_cost``'s totals and its
-    collective records (none on one card: 0 bytes of every kind)."""
-    per_device, by_kind = collective_bytes_per_device(cost.get("collectives", ()))
+    collective records (none on one card: 0 bytes of every kind).  With
+    ``per_device`` the totals are one rank's of ``chips`` (the dry-run of a
+    pod's rank), times ``chips`` for the global counts, as ``repro``
+    multiplies its per-device module's."""
+    coll, by_kind = collective_bytes_per_device(cost.get("collectives", ()))
+    scale = chips if per_device else 1
     return RooflineTerms(
         chips=chips,
-        flops_global=float(cost["flops"]),
-        hbm_bytes_global=float(cost["bytes"]),
-        collective_bytes_global=per_device * chips,
+        flops_global=float(cost["flops"]) * scale,
+        hbm_bytes_global=float(cost["bytes"]) * scale,
+        collective_bytes_global=coll * chips,
         by_kind=by_kind,
         model_flops=model_flops,
     )

@@ -95,9 +95,12 @@ if __name__ == "__main__":
     import sys
 
     recs = load_records(sys.argv[1] if len(sys.argv) > 1 else "experiments/dryrun_torch")
-    print("## Single mesh (one H100)\n")
-    print(roofline_table(recs, "single"))
-    picks = pick_hillclimb_candidates(recs)
-    print("\nHillclimb candidates:")
-    for k, r in picks.items():
-        print(f"  {k}: {r['arch']} × {r['shape']}")
+    for mesh, title in (("single", "Single-pod rank (16×16 = 256 H100s)"),
+                        ("multi", "Multi-pod rank (2×16×16 = 512 H100s)"), ("card", "One H100, global shapes")):
+        if any(r["mesh"] == mesh for r in recs):
+            print(f"## {title}\n")
+            print(roofline_table(recs, mesh) + "\n")
+    if any(r.get("status") == "OK" and r["mesh"] == "single" for r in recs):
+        print("Hillclimb candidates (single-pod rank):")
+        for k, r in pick_hillclimb_candidates(recs).items():
+            print(f"  {k}: {r['arch']} × {r['shape']}")

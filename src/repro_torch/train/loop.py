@@ -5,15 +5,16 @@ in the pipeline, async checkpointing, and per-step DySkew MoE telemetry.
 Each history entry also carries ``data_wait_s``, the seconds the loop spent
 blocked on the pipeline for that step's batch.
 
-On a (data D, model M) mesh (``launch/mesh.py::init_ranks``) every rank
-runs the same seeded ``DataPipeline`` and takes the rows ``[d·B/D,
-(d+1)·B/D)`` of each global batch by its DATA index d, one token group a
-data rank, so the M ranks of a model group hold the same tokens and each
-its slice of what ``repro``'s ``default_rules`` shard over ``model``
-(experts, heads, kv heads, the ffn's width, the vocabulary, Mamba's heads;
-``num_ep_shards`` = M); the metrics are the global ones on every rank, and
-only rank 0 calls ``on_metrics`` and writes the checkpoint's replicated
-state (the sliced leaves gathered over its model group).
+On a (pod P, data D, model M) mesh (``launch/mesh.py::init_ranks``) every
+rank runs the same seeded ``DataPipeline`` and takes the rows ``[q·B/(PD),
+(q+1)·B/(PD))`` of each global batch by its index q in the data group, one
+token group a data rank, so the M ranks of a model group hold the same
+tokens.  Each holds its slices under ``rules`` (default: ``repro``'s
+``default_rules``, FSDP of ``embed`` over the data axes and the model axis
+for experts, heads, kv heads, the ffn's width, the vocabulary and Mamba's
+heads; ``num_ep_shards`` = M); the metrics are the global ones on every
+rank, and only rank 0 calls ``on_metrics`` and writes the checkpoint's
+replicated state (the sliced leaves gathered whole on every rank).
 """
 
 from __future__ import annotations
@@ -28,12 +29,11 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config.base import ArchConfig
 from repro_torch.data.pipeline import DataConfig, DataPipeline
-from repro_torch.launch.mesh import Mesh
-from repro_torch.models.layers.moe import SpmdCtx
+from repro_torch.launch.mesh import Mesh, dp_size, mesh_ctx
 from repro_torch.models.model_api import build
-from repro_torch.models.param import shard_axes
+from repro_torch.models.param import Rules
 from repro_torch.optim.optimizers import OptimizerConfig
-from repro_torch.train.step import StepConfig, make_train_step, train_state_init, train_state_specs
+from repro_torch.train.step import StepConfig, make_train_step, train_state_axes, train_state_init
 
 
 @dataclasses.dataclass
@@ -53,15 +53,16 @@ def train(
     on_metrics: Optional[Callable[[int, Dict], None]] = None,
     device: DeviceLike = None,
     mesh: Mesh = Mesh(),
+    rules: Optional[Rules] = None,
 ) -> Dict:
     dev = resolve_device(device)
     model = build(cfg)
-    data, shards = mesh.shape["data"], mesh.shape["model"]
+    data = dp_size(mesh)
     if data_cfg.global_batch % data:
         raise ValueError(f"a global batch of {data_cfg.global_batch} rows does not split over {data} data ranks")
     rows = data_cfg.global_batch // data
     lo = mesh.data_rank * rows
-    ctx = SpmdCtx(num_groups=data, num_ep_shards=shards, group=mesh.group, ep_group=mesh.ep_group)
+    ctx = mesh_ctx(mesh, rules)
     step_fn = make_train_step(model, opt_cfg, StepConfig(), ctx)
     # Drawn on the host: the same weights on every device.
     gen = torch.Generator().manual_seed(loop_cfg.seed)
@@ -71,7 +72,7 @@ def train(
     start_step = 0
     if loop_cfg.checkpoint_dir:
         ckpt = CheckpointManager(loop_cfg.checkpoint_dir, group=mesh.group, ep_group=mesh.ep_group,
-                                 shards=shard_axes(train_state_specs(model, opt_cfg), shards, ctx.rules))
+                                 shards=train_state_axes(model, opt_cfg, ctx.mesh, ctx.rules))
         if ckpt.latest_step() is not None:
             state = ckpt.restore(state)
             start_step = int(state["step"])

@@ -10,16 +10,22 @@ each call runs eagerly on the device its tensors live on.
 With a data-parallel group (``SpmdCtx.group``) each rank's batch is its
 rows of the global batch.  With a model group (``SpmdCtx.ep_group``, the
 ranks holding the same rows) each rank holds its slice of every leaf that
-the rule table (``SpmdCtx.rules``) slices: the gradients of all leaves,
-sliced and replicated, are summed over the data group only (the model
-group's ranks already hold equal gradients of the replicated leaves, the
-layers' ``to_shard`` having summed their parts), and the optimizer sums
-what reads a whole leaf over the model group (``optimizers.Shards``).  Each rank's loss has the global value and its
-share of the global gradient (global denominators, in every microbatch), so
-the SUM of the ranks' gradients is the gradient of ``repro``'s loss on the
-global batch: the plain reduction sums each leaf in float32 (one
-``all_reduce`` a leaf); ``grad_compression`` sends it through
-``allreduce_compressed``.
+the rule table (``SpmdCtx.rules``) slices.  Each rank's loss has the global
+value and its share of the global gradient (global denominators, in every
+microbatch), so the SUM of the ranks' gradients is the gradient of
+``repro``'s loss on the global batch.  A leaf sliced over the data axes
+(FSDP) comes back from the forward's gather reduce-scattered: summed over
+the data group already, and skipped by the step's sum.  Every other leaf
+is summed over the data group only (the model group's ranks already hold
+equal gradients of the replicated leaves, the layers' ``to_shard`` having
+summed their parts): in float32, one ``all_reduce`` a leaf, or through
+``allreduce_compressed`` with ``grad_compression``, which takes only these
+leaves (the reduce-scattered ones stay in their dtype, bf16 on the wire
+under H2).  The optimizer sums what reads a whole leaf over the ranks that
+slice it (``optimizers.Shards``).  H2 (``cast_before_gather``) casts the
+float32 leaves to bf16 on the rank's slice, before the gathers; H8
+(``constrain_grads``) changes nothing, the gradients being reduce-scattered
+whatever it says.
 """
 
 from __future__ import annotations
@@ -35,10 +41,11 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.ordered_sums import div
 from repro_torch.models.layers.moe import KERNEL_OPS, DispatchOps, SpmdCtx
 from repro_torch.models.model_api import Model
-from repro_torch.models.param import model_axis, tree_leaves, tree_map
+from repro_torch.models.param import dp_part, leaf_slices, tree_leaves, tree_map
+from repro_torch.models.perf_flags import get_flags
 from repro_torch.optim.grad_compress import allreduce_compressed, residual_init
 from repro_torch.optim.optimizers import OptimizerConfig, Shards, opt_init, opt_update, zip_map
-from repro_torch.optim.specs import opt_state_specs
+from repro_torch.optim.specs import opt_state_slices, opt_state_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,12 +57,19 @@ class StepConfig:
 
 
 def model_shards(model: Model, ctx: SpmdCtx) -> Optional[Shards]:
-    """The parameter leaves ``ctx``'s rule table slices over its model
-    group, with their axes (None without a group)."""
-    if ctx.ep_group is None:
+    """Each parameter leaf's slices under ``ctx``'s mesh and rule table
+    (None without a group)."""
+    if ctx.ep_group is None and ctx.data_group is None:
         return None
-    M = distributed.world_size(ctx.ep_group)
-    return Shards(tree_map(lambda p: model_axis(p, M, ctx.rules), model.specs()), ctx.ep_group)
+    mesh = ctx.mesh
+    return Shards(tree_map(lambda p: leaf_slices(p, mesh, ctx.rules), model.specs()), mesh, ctx.data_group,
+                  ctx.ep_group)
+
+
+def _cast_before_gather(params: Any) -> Any:
+    """H2: float32 leaves as bf16, on the rank's slice (the FSDP gathers
+    follow in the forward), as ``repro``'s ``make_train_step`` casts."""
+    return tree_map(lambda p: p.to(torch.bfloat16) if p.dtype == torch.float32 else p, params)
 
 
 def train_state_init(
@@ -86,6 +100,20 @@ def train_state_specs(model: Model, opt_cfg: OptimizerConfig) -> Dict:
     return {"params": pspecs, "opt": opt_state_specs(opt_cfg, pspecs)}
 
 
+def train_state_axes(model: Model, opt_cfg: OptimizerConfig, mesh, rules) -> Dict[str, Tuple]:
+    """{``/``-joined key path: slices} of the leaves of
+    ``train_state_specs`` that a rank of ``mesh`` holds a slice of under
+    ``rules`` (``param.shard_axes``' form; the optimizer state's slices its
+    parameters', ``opt_state_slices``): what ``CheckpointManager`` gathers
+    and slices."""
+    from repro_torch.checkpoint.manager import flatten_with_paths
+
+    pspecs = model.specs()
+    slices = tree_map(lambda p: leaf_slices(p, mesh, rules), pspecs)
+    tree = {"params": slices, "opt": opt_state_slices(opt_cfg, pspecs, slices)}
+    return {k: v for k, v in flatten_with_paths(tree) if v}
+
+
 def batch_to(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
     """numpy arrays (as ``DataPipeline`` yields them) or tensors → tensors
     on ``device``."""
@@ -109,6 +137,8 @@ def make_grad_fn(
         it = iter(live)
         p_live = tree_map(lambda _: next(it), params)
         with torch.enable_grad():
+            if get_flags().cast_before_gather:
+                p_live = _cast_before_gather(p_live)
             loss, aux = model.loss(p_live, batch, dyskew=dyskew, ctx=ctx, ops=ops)
             grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
@@ -135,8 +165,15 @@ def make_train_step(
             "(SpmdCtx.group): one process has nothing to reduce over; "
             "ROADMAP.md queue A, 'allreduce_compressed'"
         )
+    if ctx.fsdp_group is not None and group is None:
+        raise ValueError("a batch replicated over the data group is served, not trained: each rank's "
+                         "gradient would be summed once a rank")
     world = distributed.world_size(group)
     shards = model_shards(model, ctx)
+    # The leaves sliced over the data axes: their gradients come back from
+    # FSDP's reduce-scatter already summed over the data group.
+    scattered = (zip_map(lambda sl: any(dp_part(axes) for _, axes in sl), shards.leaves)
+                 if shards is not None else None)
 
     grad_fn = make_grad_fn(model, ctx)
 
@@ -172,17 +209,20 @@ def make_train_step(
         if step_cfg.grad_compression:
             # Times the world size, a rank's share is the gradient of its
             # own rows at the global weighting: the reduction's mean of
-            # those is the global gradient.
+            # those is the global gradient.  The reduce-scattered leaves
+            # are left out: they are summed already, in their own dtype.
             residual = state.get("grad_residual")
             if residual is None:
-                residual = residual_init(params)
-            grads, new_residual = allreduce_compressed(
-                zip_map(lambda g: g.to(torch.float32) * world, grads), residual, group
+                residual = residual_init(_reduced(params, scattered))
+            summed, new_residual = allreduce_compressed(
+                zip_map(lambda g: g.to(torch.float32) * world, _reduced(grads, scattered)), residual, group
             )
+            grads = _merged(grads, summed, scattered)
         elif group is not None:
             # In place on float32 leaves: the gradients are this step's own.
             grads = zip_map(
-                lambda g: distributed.all_sum_(g.to(torch.float32), group).to(g.dtype), grads
+                lambda g, done: g if done else distributed.all_sum_(g.to(torch.float32), group).to(g.dtype),
+                grads, scattered if scattered is not None else zip_map(lambda g: False, grads)
             )
 
         with torch.no_grad():
@@ -198,6 +238,26 @@ def make_train_step(
         return new_state, metrics
 
     return train_step
+
+
+def _reduced(tree: Any, scattered: Any) -> Any:
+    """The leaves of ``tree`` still to be all-reduced (every leaf without
+    ``scattered``), with their keys."""
+    if scattered is None:
+        return tree
+    if isinstance(tree, dict):
+        out = {k: _reduced(tree[k], scattered[k]) for k in sorted(tree)}
+        return {k: v for k, v in out.items() if not (isinstance(v, dict) and not v)}
+    return {} if scattered else tree
+
+
+def _merged(grads: Any, summed: Any, scattered: Any) -> Any:
+    """``grads`` with the all-reduced leaves taken from ``summed``."""
+    if scattered is None:
+        return summed
+    if isinstance(grads, dict):
+        return {k: grads[k] if k not in summed else _merged(grads[k], summed[k], scattered[k]) for k in grads}
+    return grads if scattered else summed
 
 
 def make_prefill_step(model: Model, ctx: SpmdCtx = SpmdCtx()):

@@ -67,10 +67,10 @@ def test_run_cell_full_size_ok(arch, shape, tmp_path):
     import torch._dynamo  # noqa: F401
 
     env = dict(os.environ)
-    rec = dryrun.run_cell(arch, shape, out_dir=str(tmp_path), verbose=False)
+    rec = dryrun.run_cell(arch, shape, "card", out_dir=str(tmp_path), verbose=False)
     assert rec["status"] == "OK", rec.get("traceback")
     assert dict(os.environ) == env          # sets no environment variable
-    on_disk = json.loads((tmp_path / f"{arch}__{shape}__single.json").read_text())
+    on_disk = json.loads((tmp_path / f"{arch}__{shape}__card.json").read_text())
     assert on_disk["status"] == "OK"
     for key in ("params", "active_params", "model_flops", "chips", "kind", "trace_s"):
         assert key in rec
@@ -84,7 +84,7 @@ def test_run_cell_full_size_ok(arch, shape, tmp_path):
     assert rec["cost"]["kernels"], "the kernels report themselves on meta too"
     # The port's report renders the record as the reference's does.
     recs = t_report.load_records(str(tmp_path))
-    assert t_report.roofline_table(recs) == j_report.roofline_table(recs)
+    assert t_report.roofline_table(recs, "card") == j_report.roofline_table(recs, "card")
 
 
 def test_long_500k_skips_full_attention(tmp_path):
@@ -104,15 +104,20 @@ def test_a_failing_cell_is_recorded(monkeypatch):
 
 
 class TestFlags:
-    @pytest.mark.parametrize("spec,field", [("h1", "causal_skip"), ("h9", "moe_scatter_combine")])
+    @pytest.mark.parametrize("spec,field", [("h1", "causal_skip"), ("h9", "moe_scatter_combine"),
+                                            ("h2", "cast_before_gather"), ("h8", "constrain_grads")])
     def test_accepted(self, spec, field):
-        assert getattr(dryrun.parse_flags(spec), field)
+        assert getattr(dryrun.parse_flags(spec)[0], field)
 
     def test_both(self):
-        f = dryrun.parse_flags("h1, H9")
-        assert f.causal_skip and f.moe_scatter_combine
+        f, rule = dryrun.parse_flags("h1, H9")
+        assert f.causal_skip and f.moe_scatter_combine and rule == {"fsdp_only": False, "h10": False}
 
-    @pytest.mark.parametrize("spec", ["h5", "h2", "h3", "h6", "h7", "h8", "h10", "h11", "h1,h5"])
+    def test_rule_switches(self):
+        f, rule = dryrun.parse_flags("h6,h10,h2")
+        assert f.cast_before_gather and rule == {"fsdp_only": True, "h10": True}
+
+    @pytest.mark.parametrize("spec", ["h5", "h3", "h4", "h7", "h11", "h1,h5"])
     def test_sharding_only_raise(self, spec):
         with pytest.raises(ValueError, match="sharding"):
             dryrun.parse_flags(spec)
@@ -124,20 +129,44 @@ class TestFlags:
 
 class TestMesh:
     def test_one_card(self):
-        m = mesh.make_production_mesh()
+        """One process is the mesh (data 1, model 1); ``repro``'s single pod
+        is (data 16, model 16)."""
+        m = mesh.Mesh()
         assert m.shape == {"data": 1, "model": 1}
         assert mesh.dp_size(m) == 1 and mesh.model_size(m) == 1 and mesh.dp_axes(False) == ("data",)
+        pod = mesh.make_production_mesh()
+        assert pod.shape == {"data": 16, "model": 16} and mesh.dp_size(pod) == 16
 
     def test_four_cards_raise(self):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            mesh.make_production_mesh(multi_pod=True)
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            mesh.dp_axes(True)
+        """The pod meshes no longer raise: ``repro``'s (pod 2, data 16,
+        model 16) and its data axes (pod, data)."""
+        m = mesh.make_production_mesh(multi_pod=True)
+        assert m.shape == {"pod": 2, "data": 16, "model": 16}
+        assert mesh.dp_size(m) == 32 and mesh.model_size(m) == 16
+        assert mesh.dp_axes(True) == ("pod", "data")
 
     @pytest.mark.parametrize("arch", ARCHS)
     def test_spmd_ctx(self, arch):
-        ctx = dryrun.spmd_ctx(t_base.get_config(arch), mesh.make_production_mesh())
+        """Token groups and link instances of every shape on both pods, as
+        ``repro``'s ``spmd_ctx`` gives them; one card has one of each."""
+        import types
+
+        from repro.launch import dryrun as j_dryrun
+
+        cfg, jcfg = t_base.get_config(arch), j_base.get_config(arch)
+        ctx = dryrun.spmd_ctx(cfg, mesh.Mesh())
         assert ctx.num_groups == 1 and ctx.num_ep_shards == 1
+        for multi in (False, True):
+            pod = mesh.make_production_mesh(multi_pod=multi)
+            for shape in j_base.SHAPES.values():
+                tokens = shape.global_batch * (shape.seq_len if shape.kind in ("train", "prefill") else 1)
+                want = j_dryrun.spmd_ctx(jcfg, types.SimpleNamespace(shape=pod.shape), multi, tokens,
+                                         shape.global_batch)
+                got = dryrun.spmd_ctx(cfg, pod, tokens, shape.global_batch)
+                split = shape.global_batch % mesh.dp_size(pod) == 0
+                assert got.num_groups == want.num_groups and got.num_ep_shards == want.num_ep_shards, \
+                    (arch, shape.name, multi)
+                assert bool(want.batch_axes) == split
 
 
 @pytest.mark.parametrize("arch", ARCHS)

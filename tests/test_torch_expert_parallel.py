@@ -568,7 +568,8 @@ def test_collectives_are_counted(granite, mesh_1x4):
     cfg = _cfg(t_get_config)
     part = job["counted"]
     tokens = ROWS * SEQ
-    params = slice_shards(part["state"]["params"], expert_axes(t_build(cfg).specs()), 0, 4)
+    slices = {k: ((axis, ("model",)),) for k, axis in expert_axes(t_build(cfg).specs()).items()}
+    params = slice_shards(part["state"]["params"], slices, {"model": 4}, {"model": 0})
     want = {"train": _issued(cfg, (1, 4), 1, tokens, params, True),
             "prefill": _issued(cfg, (1, 4), 1, tokens, params, False)}
     for r, rank in enumerate(res):
@@ -588,17 +589,16 @@ def test_collectives_are_counted(granite, mesh_1x4):
 
 def test_what_raises(mesh_1x2):
     """``num_ep_shards`` other than the model group's size, and a model axis
-    that does not divide the experts, each naming both; the pod meshes;
-    a model axis that does not divide the ranks; slicing 8 experts 3
-    ways."""
+    that does not divide the experts, each naming both; a model axis that
+    does not divide the ranks; slicing 8 experts 3 ways.  The pod meshes
+    no longer raise: ``repro``'s (pod 2, data 16, model 16) and its data
+    axes."""
     _, res = mesh_1x2
     for rank in res:
         assert "num_ep_shards=4" in rank["raises"]["shards"] and "2 rank" in rank["raises"]["shards"]
         assert "num_ep_shards=2" in rank["raises"]["experts"] and "3 experts" in rank["raises"]["experts"]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        t_mesh.make_production_mesh(multi_pod=True)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        t_mesh.dp_axes(True)
+    assert t_mesh.make_production_mesh(multi_pod=True).shape == {"pod": 2, "data": 16, "model": 16}
+    assert t_mesh.dp_axes(True) == ("pod", "data")
     with pytest.raises(ValueError, match="does not divide 4 ranks"):
         t_mesh.init_ranks(0, 4, device=torch.device(CPU), init_method="file:///nonexistent", model=3)
     with pytest.raises(ValueError, match="does not divide 8 experts"):
@@ -615,9 +615,10 @@ def test_a_rank_holds_its_slice_of_the_init():
     whole = tree_materialize(specs, torch.Generator().manual_seed(3), device=CPU)
     axes = expert_axes(specs)
     assert sorted(axes) == [f"blocks/l0/moe/{w}" for w in ("w_down", "w_gate", "w_up")]
+    slices = {k: ((axis, ("model",)),) for k, axis in axes.items()}
     for m in range(4):
-        mine = tree_materialize(specs, torch.Generator().manual_seed(3), device=CPU, shard=(m, 4),
-                                rules=expert_rules())
-        want = slice_shards(whole, axes, m, 4)
+        mine = tree_materialize(specs, torch.Generator().manual_seed(3), device=CPU, mesh={"model": 4},
+                                coords={"model": m}, rules=expert_rules())
+        want = slice_shards(whole, slices, {"model": 4}, {"model": m})
         for (key, a), (_, b) in zip(flatten_with_paths(want), flatten_with_paths(mine)):
             assert torch.equal(a, b) and b.is_contiguous(), (m, key)

@@ -1,5 +1,6 @@
 """The whole model axis through the port against ``repro`` on the CPU: the
-reference's ``default_rules`` (``embed`` left whole), every leaf the table
+reference's ``default_rules`` with ``embed`` left whole (``model_rules``;
+FSDP is ``tests/test_torch_fsdp.py``), every leaf the table
 puts on ``model`` sliced over the model group, with ``resolve_pspec``'s
 fallback to whole leaves.
 
@@ -82,9 +83,9 @@ from repro_torch.models import transformer as t_transformer
 from repro_torch.models.layers import moe as tmoe
 from repro_torch.models.layers.mamba2 import _dims as mamba_dims
 from repro_torch.models.model_api import build as t_build
-from repro_torch.models.param import default_rules, shard_axes, take_shard
+from repro_torch.models.param import model_rules, shard_axes, take_shard
 from repro_torch.optim.optimizers import OptimizerConfig
-from repro_torch.train.step import train_state_init, train_state_specs
+from repro_torch.train.step import train_state_axes, train_state_init
 
 import torch_tp_worker as worker
 from test_torch_arch import GRAD_TOL, _params, _reduced, assert_logits
@@ -144,8 +145,11 @@ def _batches(cfg, seed, n):
 
 
 def _axes(cfg, model, opt=None):
-    specs = t_build(cfg).specs() if opt is None else train_state_specs(t_build(cfg), opt)
-    return shard_axes(specs, model, default_rules())
+    """{key path: the axis the model axis slices} under the model-only
+    table (one sliced dimension a leaf)."""
+    axes = (shard_axes(t_build(cfg).specs(), {"model": model}, model_rules()) if opt is None
+            else train_state_axes(t_build(cfg), opt, {"model": model}, model_rules()))
+    return {k: slices[0][0] for k, slices in axes.items()}
 
 
 def _slice(a, key, axes, m, model):
@@ -329,7 +333,7 @@ def test_rules_resolve_as_the_reference_does():
     from repro_torch.models.param import tree_leaves as t_leaves
 
     jrules = dict(j_default_rules(False), embed=None, expert_embed=None)
-    assert jrules == default_rules()
+    assert jrules == model_rules()
 
     class FakeMesh:
         def __init__(self, model):
@@ -339,10 +343,11 @@ def test_rules_resolve_as_the_reference_does():
         jm, tm = j_build(j_get_config(name)), t_build(t_get_config(name))
         jleaves = jax.tree.leaves(jm.specs(), is_leaf=lambda x: hasattr(x, "axes"))
         for model in (2, 4, 16):
-            got = [resolve_pspec(p, {"model": model}, default_rules()) for p in t_leaves(tm.specs())]
+            got = [resolve_pspec(p, {"model": model}, model_rules()) for p in t_leaves(tm.specs())]
             want = [tuple(j_resolve(p, FakeMesh(model), jrules)) for p in jleaves]
             assert got == want, (name, model)
-        assert shard_axes(tm.specs(), 4, expert_rules()) == expert_axes(tm.specs()), name
+        got = {k: sl[0][0] for k, sl in shard_axes(tm.specs(), {"model": 4}, expert_rules()).items()}
+        assert got == expert_axes(tm.specs()), name
     del JMesh
 
 
@@ -361,20 +366,22 @@ def test_a_rank_holds_what_the_reference_layout_gives_it():
     for key, p in flatten_with_paths(specs):
         part = ("experts" if "/moe/w_" in key else "attention" if "/attn/" in key else
                 "vocab" if key.endswith("table") else "router and norms")
-        held[part] += math.prod(local_shape(p, 4, default_rules()))
+        held[part] += math.prod(local_shape(p, {"model": 4}, model_rules()))
     assert held == {"experts": 301_989_888, "attention": 18_874_368, "vocab": 25_231_360,
                     "router and norms": 836_608}
-    assert "blocks/l0/moe/router" not in shard_axes(specs, 4, default_rules())
-    mqa = shard_axes(t_build(t_get_config("granite-20b")).specs(), 4, default_rules())
-    assert "blocks/l0/attn/wk" not in mqa and mqa["blocks/l0/attn/wq"] == 2
+    assert "blocks/l0/moe/router" not in shard_axes(specs, {"model": 4}, model_rules())
+    mqa = shard_axes(t_build(t_get_config("granite-20b")).specs(), {"model": 4}, model_rules())
+    assert "blocks/l0/attn/wk" not in mqa and mqa["blocks/l0/attn/wq"] == ((2, ("model",)),)
     model = t_build(_reduced(t_get_config, MAMBA))
     whole = tree_materialize(model.specs(), torch.Generator().manual_seed(3), device=CPU)
-    axes = shard_axes(model.specs(), 4, default_rules())
+    axes = shard_axes(model.specs(), {"model": 4}, model_rules())
     assert sorted(k.rsplit("/", 1)[-1] for k in axes if k.startswith("blocks/")) == sorted(
         ["A_log", "D", "conv_x", "dt_bias", "w_dt", "w_out", "w_x", "w_z"])
     for m in range(4):
-        mine = tree_materialize(model.specs(), torch.Generator().manual_seed(3), device=CPU, shard=(m, 4))
-        for (key, a), (_, b) in zip(flatten_with_paths(slice_shards(whole, axes, m, 4)), flatten_with_paths(mine)):
+        mine = tree_materialize(model.specs(), torch.Generator().manual_seed(3), device=CPU, mesh={"model": 4},
+                                coords={"model": m}, rules=model_rules())
+        for (key, a), (_, b) in zip(flatten_with_paths(slice_shards(whole, axes, {"model": 4}, {"model": m})),
+                                    flatten_with_paths(mine)):
             assert torch.equal(a, b) and b.is_contiguous(), (m, key)
 
 
@@ -621,7 +628,7 @@ def _train_issued(cfg, model, tokens, params, scatter):
         out.update(layer * t_transformer.num_blocks(cfg))
     leaves = flatten_with_paths(params)
     out.update(("all-reduce", 1, 4 * v.size) for _, v in leaves)
-    out.update([("all-reduce", model, 4 * len(shard_axes(t_build(cfg).specs(), model, default_rules())))])
+    out.update([("all-reduce", model, 4 * len(shard_axes(t_build(cfg).specs(), {"model": model}, model_rules())))])
     return +out
 
 
@@ -650,10 +657,12 @@ def test_collectives_are_counted(family_reference, train_reference, mesh_1x4, na
 
 
 def test_what_raises(mesh_1x2):
-    """Query heads that straddle kv groups, Mamba heads that straddle B/C
-    groups, and a table naming the data axis (FSDP) each raise, naming
-    ROADMAP.md queue A."""
+    """Query heads that straddle kv groups and Mamba heads that straddle B/C
+    groups each raise, naming ROADMAP.md queue A; a table naming a mesh
+    axis that the mesh lacks (``pod`` on a (data, model) mesh) raises,
+    naming the axis."""
     _, res = mesh_1x2
     for rank in res:
-        for key in ("kv", "mamba", "fsdp"):
+        for key in ("kv", "mamba"):
             assert "ROADMAP.md queue A" in rank["raises"][key], (key, rank["raises"])
+        assert "['pod']" in rank["raises"]["fsdp"] and "lacks" in rank["raises"]["fsdp"], rank["raises"]

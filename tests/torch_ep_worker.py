@@ -52,9 +52,9 @@ def _ctx(mesh, groups):
 def _sliced(mesh, tree, specs):
     """The whole numpy ``tree`` (keyed as the spec tree ``specs``) cut to
     this rank's experts."""
-    from repro_torch.models.param import expert_axes, slice_shards
+    from repro_torch.models.param import expert_rules, shard_axes, slice_shards
 
-    return slice_shards(tree, expert_axes(specs), mesh.model_rank, mesh.shape["model"])
+    return slice_shards(tree, shard_axes(specs, mesh.shape, expert_rules()), mesh.shape, mesh.coords)
 
 
 def _rows(tree: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
@@ -68,13 +68,14 @@ def _train_setup(mesh, job, ctx):
     from repro_torch.models.convert import state_from_numpy
     from repro_torch.models.model_api import build
     from repro_torch.optim.optimizers import OptimizerConfig
-    from repro_torch.train.step import train_state_specs
+    from repro_torch.models.param import slice_shards
+    from repro_torch.train.step import train_state_axes
 
     model = build(job["cfg"])
     opt = OptimizerConfig(name=job.get("opt", "adamw"), warmup_steps=2, total_steps=20)
-    specs = train_state_specs(model, opt)
-    state = state_from_numpy(dict(job["state"], **_sliced(mesh, {k: job["state"][k] for k in specs}, specs)),
-                             device="cpu")
+    state = state_from_numpy(dict(job["state"], **slice_shards(
+        {k: job["state"][k] for k in ("params", "opt")}, train_state_axes(model, opt, ctx.mesh, ctx.rules),
+        ctx.mesh, ctx.coords)), device="cpu")
     return model, opt, state
 
 
@@ -220,14 +221,13 @@ def save_checkpoint(mesh, job):
     """One train step, then a checkpoint of the state (the expert leaves
     gathered whole over the model group) and a restore on this mesh."""
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.models.param import expert_axes
-    from repro_torch.train.step import make_train_step, train_state_specs
+    from repro_torch.train.step import make_train_step, train_state_axes
 
     ctx = _ctx(mesh, job["groups"])
     model, opt, state = _train_setup(mesh, job, ctx)
     state, _ = make_train_step(model, opt, ctx=ctx)(state, _rows(job["batch"], mesh))
     mgr = CheckpointManager(job["dir"], group=mesh.group, ep_group=mesh.ep_group,
-                            shards=expert_axes(train_state_specs(model, opt)))
+                            shards=train_state_axes(model, opt, ctx.mesh, ctx.rules))
     mgr.save(1, state, blocking=True)
     torch.distributed.barrier()
     return {"saved": flat_numpy(state), "restored": flat_numpy(mgr.restore(state))}
@@ -241,14 +241,13 @@ def restore_checkpoint(mesh, job):
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.models.layers.moe import SpmdCtx
     from repro_torch.models.model_api import build
-    from repro_torch.models.param import expert_axes
     from repro_torch.optim.optimizers import OptimizerConfig
-    from repro_torch.train.step import train_state_init, train_state_specs
+    from repro_torch.train.step import train_state_axes, train_state_init
 
     model = build(job["cfg"])
     opt = OptimizerConfig(name="adamw", warmup_steps=2, total_steps=20)
-    axes = expert_axes(train_state_specs(model, opt))
     ctx = _ctx(mesh, job["groups"])
+    axes = train_state_axes(model, opt, ctx.mesh, ctx.rules)
     like = train_state_init(model, opt, torch.Generator().manual_seed(5), ctx, "cpu")
     out = {"restored": flat_numpy(CheckpointManager(job["dir"], group=mesh.group, ep_group=mesh.ep_group,
                                                     shards=axes).restore(like))}

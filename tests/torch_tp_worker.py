@@ -2,9 +2,10 @@
 below is the body of one rank of a (data D, model M) mesh of gloo ranks on
 the CPU, started through ``run_rank`` by
 ``repro_torch.launch.mesh.run_ranks`` with its arguments pickled.  The ranks
-run the reference's layout, ``param.default_rules()``: every leaf that the
-rule table puts on the model axis is this rank's slice of the reference's
-whole numpy parameters (``param.shard_axes`` / ``slice_shards``).  This
+run the reference's layout less FSDP, ``param.model_rules()``: every leaf
+that the rule table puts on the model axis is this rank's slice of the
+reference's whole numpy parameters (``param.shard_axes`` /
+``slice_shards``).  This
 module imports torch and the port only (no JAX); results go back as numpy
 arrays."""
 
@@ -47,11 +48,10 @@ def _ctx(mesh, groups):
 
 def _sliced(mesh, tree, specs):
     """The whole numpy ``tree`` (keyed as the spec tree ``specs``) cut to
-    this rank's slices under the default rules."""
-    from repro_torch.models.param import default_rules, shard_axes, slice_shards
+    this rank's slices under the model-only rules."""
+    from repro_torch.models.param import model_rules, shard_axes, slice_shards
 
-    M = mesh.shape["model"]
-    return slice_shards(tree, shard_axes(specs, M, default_rules()), mesh.model_rank, M)
+    return slice_shards(tree, shard_axes(specs, mesh.shape, model_rules()), mesh.shape, mesh.coords)
 
 
 def _params(mesh, model, whole):
@@ -64,14 +64,15 @@ def _train_setup(mesh, job, ctx):
     from repro_torch.models.convert import state_from_numpy
     from repro_torch.models.model_api import build
     from repro_torch.optim.optimizers import OptimizerConfig
-    from repro_torch.train.step import train_state_specs
+    from repro_torch.models.param import slice_shards
+    from repro_torch.train.step import train_state_axes
 
     model = build(job["cfg"])
     opt = OptimizerConfig(name=job.get("opt", "adamw"), warmup_steps=2, total_steps=20,
                           factored_dim_threshold=job.get("factored", 128))
-    specs = train_state_specs(model, opt)
-    state = state_from_numpy(dict(job["state"], **_sliced(mesh, {k: job["state"][k] for k in specs}, specs)),
-                             device="cpu")
+    state = state_from_numpy(dict(job["state"], **slice_shards(
+        {k: job["state"][k] for k in ("params", "opt")}, train_state_axes(model, opt, ctx.mesh, ctx.rules),
+        ctx.mesh, ctx.coords)), device="cpu")
     return model, opt, state
 
 
@@ -165,13 +166,12 @@ def save_checkpoint(mesh, job):
     """One train step, then a checkpoint of the state (each sliced leaf
     gathered whole over the model group) and a restore on this mesh."""
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.models.param import shard_axes
-    from repro_torch.train.step import make_train_step, train_state_specs
+    from repro_torch.train.step import make_train_step, train_state_axes
 
     ctx = _ctx(mesh, job["groups"])
     model, opt, state = _train_setup(mesh, job, ctx)
     state, _ = make_train_step(model, opt, ctx=ctx)(state, _rows(job["batch"], mesh))
-    axes = shard_axes(train_state_specs(model, opt), mesh.shape["model"], ctx.rules)
+    axes = train_state_axes(model, opt, ctx.mesh, ctx.rules)
     mgr = CheckpointManager(job["dir"], group=mesh.group, ep_group=mesh.ep_group, shards=axes)
     mgr.save(1, state, blocking=True)
     torch.distributed.barrier()
@@ -183,14 +183,13 @@ def restore_checkpoint(mesh, job):
     mesh: the restored flat state."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.models.model_api import build
-    from repro_torch.models.param import shard_axes
     from repro_torch.optim.optimizers import OptimizerConfig
-    from repro_torch.train.step import train_state_init, train_state_specs
+    from repro_torch.train.step import train_state_axes, train_state_init
 
     model = build(job["cfg"])
     opt = OptimizerConfig(name="adamw", warmup_steps=2, total_steps=20)
     ctx = _ctx(mesh, job["groups"])
-    axes = shard_axes(train_state_specs(model, opt), mesh.shape["model"], ctx.rules)
+    axes = train_state_axes(model, opt, ctx.mesh, ctx.rules)
     like = train_state_init(model, opt, torch.Generator().manual_seed(5), ctx, "cpu")
     mgr = CheckpointManager(job["dir"], group=mesh.group, ep_group=mesh.ep_group, shards=axes)
     return {"restored": flat_numpy(mgr.restore(like))}
@@ -226,16 +225,16 @@ def counted(mesh, job):
 
 
 def raises(mesh, job):
-    """The messages of what must raise under the default rules on this
+    """The messages of what must raise under the model-only rules on this
     mesh: a kv layout whose query heads straddle kv groups, a Mamba layout
-    whose heads straddle B/C groups, and a rule table naming the data
-    axis."""
+    whose heads straddle B/C groups, and a rule table naming a mesh axis
+    (``pod``) that the mesh lacks."""
     import dataclasses
 
     from repro_torch.models.layers import mamba2
     from repro_torch.models.layers.attention import kv_heads_of
     from repro_torch.models.model_api import build
-    from repro_torch.models.param import default_rules
+    from repro_torch.models.param import model_rules
 
     out = {}
     cfg = job["cfg"]
@@ -249,7 +248,7 @@ def raises(mesh, job):
         out["mamba"] = str(e)
     try:
         build(cfg).init(torch.Generator().manual_seed(0), device="cpu",
-                        ctx=dataclasses.replace(_ctx(mesh, 1), rules=dict(default_rules(), embed="data")))
-    except NotImplementedError as e:
+                        ctx=dataclasses.replace(_ctx(mesh, 1), rules=dict(model_rules(), embed=("pod", "data"))))
+    except ValueError as e:
         out["fsdp"] = str(e)
     return out
