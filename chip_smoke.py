@@ -27,11 +27,15 @@ granite-20b, chatglm3-6b and starcoder2-3b, reduced, card against host.
 Then it holds the card against the host on the DySkew link and the
 Snowpark UDF simulator, in one process: ``AdaptiveLink.step`` and every
 planner at 32 × 4,096 and 1,024 × 1,048,576 items (two card runs must be
-identical and equal to ``device="cpu"``), and three simulator runs, each on
+identical and equal to ``device="cpu"``), and four simulator runs, each on
 the card and on the host, whose ``QueryResult``s (rtol 1e-9, counts
 exactly) and per-tick distribute masks must be equal: the full Fig. 4
-TPCx-BB suite on 4 nodes, 256 open-loop tenants on batched ticks, and a
-worker crash beside one pipeline scenario.
+TPCx-BB suite on 4 nodes, 256 open-loop tenants on batched ticks, a
+worker crash beside one pipeline scenario, and ``claims``: the runs of the
+reference's claim tests (Fig. 4's four quick queries, the §III.B heavy-row
+case unguarded and guarded, the Never and Eager policies, deadline-aware
+against weight-only admission), the same bits on card and host, each band
+checked on the card's numbers.
 
 Last it trains: the DySkew data pipeline's 64 batches of 8 × 1024 tokens on
 8 data-parallel shards, card against host; the serving engine's scheduler
@@ -117,7 +121,8 @@ Standard output is one JSON object per line:
     {"phase": "families_reduced"} seven configs reduced, card against host
     {"phase": "profile", ...}    only with --profile: device time by kernel
     {"phase": "link", ...}       AdaptiveLink.step and the planners, card against host
-    {"phase": "sim", ...}        Fig. 4, 256 tenants, faults, pipeline, card against host
+    {"phase": "sim", ...}        Fig. 4, 256 tenants, faults, pipeline, the paper's claims
+                                 (bands on the card's numbers), card against host
     {"phase": "data_pipeline"}   DataPipeline batches and link plans, card against host
     {"phase": "serving_engine"}  ServingEngine results, card against host
     {"phase": "train", ...}      step 1 kernel against plain, 4 full steps, reduced
@@ -1984,6 +1989,97 @@ def pipeline_run(device):
     return name, run_pipeline_ab(stages, inputs, ClusterConfig(num_nodes=4), seed=13, device=device)
 
 
+CLAIM_QUERIES = ("q05", "q10", "q19", "q22")
+
+
+def claims_run(device):
+    """The paper's claims as ``tests/test_paper_claims.py`` and
+    ``tests/test_slo_layer.py`` run them: Fig. 4's four quick queries at
+    seeds 100 + i on 4 nodes, the §III.B heavy-row case (``none``, the
+    unguarded arm, the guarded arm), the Never and Eager policy runs, and
+    the overloaded SLO mix under weight-only and deadline-aware admission."""
+    from repro_torch.core.admission import DeadlineConfig, FairShareConfig
+    from repro_torch.core.types import DySkewConfig, Policy
+    from repro_torch.sim.engine import ClusterConfig, Simulator, StrategyConfig
+    from repro_torch.sim.replay import (dyskew_strategy, improvement, legacy_strategy,
+                                        open_loop_rate, run_open_loop)
+    from repro_torch.sim.workload import (ArrivalProcess, QueryProfile, generate_query,
+                                          heavy_rows_case, slo_suite, tpcxbb_suite)
+
+    out = {"fig4": {}}
+    cluster = ClusterConfig(num_nodes=4)
+    suite = {p.name: p for p in tpcxbb_suite()}
+    for i, name in enumerate(CLAIM_QUERIES):
+        prof = suite[name]
+        batches = generate_query(prof, cluster.num_workers, seed=100 + i)
+        legacy = Simulator(cluster, legacy_strategy(prof), i, device=device).run_query(batches)
+        dyskew = Simulator(cluster, dyskew_strategy(prof), i, device=device).run_query(batches)
+        out["fig4"][name] = (improvement(legacy.latency, dyskew.latency), legacy, dyskew)
+
+    batches = generate_query(heavy_rows_case(row_gb=1.0, n_rows=48), cluster.num_workers, seed=0)
+    unguarded = StrategyConfig(
+        kind="dyskew",
+        dyskew=DySkewConfig(policy=Policy.EAGER_SNOWPARK, cost_gate=0.0, min_batch_density_frac=0.0),
+        enable_density_guard=False, enable_cost_gate=False,
+    )
+    out["heavy_rows"] = [Simulator(cluster, st, 0, device=device).run_query(batches)
+                         for st in (StrategyConfig(kind="none"), unguarded, StrategyConfig(kind="dyskew"))]
+
+    cluster = ClusterConfig(num_nodes=2)
+    for key, prof in (
+        ("never", QueryProfile(name="nv", n_rows=4000, mean_row_cost=1e-3, partition_alpha=1.0,
+                               hot_fraction=0.3, policy=Policy.NEVER)),
+        ("eager", QueryProfile(name="ea", n_rows=4000, mean_row_cost=1e-3, policy=Policy.EAGER_SNOWPARK)),
+    ):
+        batches = generate_query(prof, cluster.num_workers, seed=0)
+        out[key] = Simulator(cluster, dyskew_strategy(prof), 0, device=device).run_query(batches)
+
+    specs = slo_suite()
+    proc = ArrivalProcess(kind="poisson", rate=open_loop_rate([p for p, _, _ in specs], cluster, load=2.5))
+    kw = dict(fair_share=FairShareConfig(quantum_rows=64.0, heavy_row_bytes=1e6), seed=0, device=device)
+    deadline = DeadlineConfig(urgency_horizon=1.0, boost_quanta=4.0)
+    out["slo"] = [
+        {k: v for k, v in run_open_loop(specs, cluster, proc, 14, **arm, **kw).items() if k != "tenants"}
+        for arm in ({}, dict(deadline_aware=True, deadline_cfg=deadline))
+    ]
+    return out
+
+
+def claims_checks(out) -> dict:
+    """The bands of the reference's claim tests on one side's numbers;
+    returns the virtual-time readings."""
+    imp = {q: out["fig4"][q][0] for q in CLAIM_QUERIES}
+    check(0.30 <= imp["q10"] <= 0.60, f"claims: Fig. 4 q10 improvement {imp['q10']} outside 0.30-0.60")
+    check(0.20 <= imp["q19"] <= 0.50, f"claims: Fig. 4 q19 improvement {imp['q19']} outside 0.20-0.50")
+    for q in ("q05", "q22"):
+        check(abs(imp[q]) < 0.08, f"claims: Fig. 4 {q} improvement {imp[q]} not within 0.08")
+    none, ung, grd = out["heavy_rows"]
+    check(ung.latency > 10.0 * none.latency, f"claims: unguarded heavy rows {ung.latency} not > 10x {none.latency}")
+    check(grd.latency < 1.1 * none.latency, f"claims: guarded heavy rows {grd.latency} not < 1.1x {none.latency}")
+    never, eager = out["never"], out["eager"]
+    check(never.rows_redistributed == 0 and not never.redistribution_applied, "claims: Policy.NEVER moved rows")
+    check(eager.redistribution_applied, "claims: Policy.EAGER_SNOWPARK did not redistribute")
+    base, dl = out["slo"]
+    g_base, g_dl = base["per_class"]["gold"], dl["per_class"]["gold"]
+    check(dl["slo_attainment"] >= base["slo_attainment"], "claims: deadline-aware lost on SLO attainment")
+    check(g_dl["slo_attainment"] >= g_base["slo_attainment"], "claims: deadline-aware lost gold's attainment")
+    check(g_dl["p99_tardiness"] <= g_base["p99_tardiness"] + 1e-9, "claims: deadline-aware lost gold's p99 tardiness")
+    return {
+        "fig4_improvement": imp,
+        "fig4_latency_virtual_s": {q: [out["fig4"][q][1].latency, out["fig4"][q][2].latency]
+                                   for q in CLAIM_QUERIES},
+        "heavy_rows_latency_virtual_s": {"none": none.latency, "unguarded": ung.latency, "guarded": grd.latency},
+        "heavy_rows_unguarded_over_none": ung.latency / none.latency,
+        "heavy_rows_guarded_over_none": grd.latency / none.latency,
+        "heavy_rows_redistributed": [r.rows_redistributed for r in out["heavy_rows"]],
+        "never_rows_redistributed": never.rows_redistributed,
+        "eager_rows_redistributed": eager.rows_redistributed,
+        "slo_attainment": [base["slo_attainment"], dl["slo_attainment"]],
+        "gold_slo_attainment": [g_base["slo_attainment"], g_dl["slo_attainment"]],
+        "gold_p99_tardiness_virtual_s": [g_base["p99_tardiness"], g_dl["p99_tardiness"]],
+    }
+
+
 def device_work_of(torch, fn):
     """Kernels and copies one call of ``fn`` puts on the card, from
     torch.profiler (None where the trace shows no device events), and the
@@ -2105,6 +2201,12 @@ def phase_sim(torch, card="cuda"):
     row["pipeline"] = {"scenario": name, "arms": sorted(ab_card), "link_ticks": ticks,
                        "makespan_virtual_s": {k: v["makespan"] for k, v in ab_card.items()},
                        "wall_s_card": walls[0], "wall_s_cpu": walls[1]}
+
+    # 4. The paper's claims (the reference's claim tests' runs): the same
+    # bits on card and host, the bands checked on the card's numbers.
+    outs, logs, walls, ticks = on_both(torch, card, claims_run, "claims")
+    same_value(outs[0], outs[1], "claims")
+    row["claims"] = dict(claims_checks(outs[0]), link_ticks=ticks, wall_s_card=walls[0], wall_s_cpu=walls[1])
 
     if torch.device(card).type == "cuda":
         row["device_work"] = tick_launches(torch)
@@ -2231,13 +2333,28 @@ def serving_configs():
 
 
 def same_value(a, b, where):
+    """Card against host bit for bit: results field by field, summaries
+    key by key, floats and arrays equal (NaN equal to NaN)."""
+    import dataclasses
     import math
 
+    import numpy as np
+
     check(type(a) is type(b), f"{where}: {type(a).__name__} against {type(b).__name__}")
-    if isinstance(a, dict):
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            same_value(getattr(a, f.name), getattr(b, f.name), f"{where}.{f.name}")
+    elif isinstance(a, dict):
         check(list(a) == list(b), f"{where}: keys")
         for k in a:
             same_value(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        check(len(a) == len(b), f"{where}: length")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_value(x, y, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray):
+        check(a.shape == b.shape and bool(np.array_equal(a, b, equal_nan=a.dtype.kind == "f")),
+              f"{where}: arrays differ")
     elif isinstance(a, float):
         check(a == b or (math.isnan(a) and math.isnan(b)), f"{where}: {a!r} against {b!r}")
     else:

@@ -2,15 +2,37 @@
 the CPU, each checked for what the verify skill says it shows: the link's
 makespan drops to the balanced one, dyskew < static_rr < none in latency,
 dyskew's p99 no worse than round-robin's, and both dispatch modes train
-(one process and two gloo ranks, at a tiny width)."""
+(one process and two gloo ranks, at a tiny width).  The first three also
+print what the reference's ``examples/<name>.py`` prints, line for line."""
 
 import math
+import os
+import runpy
 
 import pytest
 
 from repro_torch.examples import quickstart, serve_dyskew, sim_replay, train_moe_dyskew
 
 CPU = "cpu"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("example,lines", [(quickstart, 11), (sim_replay, 5), (serve_dyskew, 2)],
+                         ids=["quickstart", "sim_replay", "serve_dyskew"])
+def test_prints_what_the_reference_prints(example, lines, capsys):
+    """The reference's ``examples/<name>.py`` (JAX on the CPU) and the
+    port's ``run("cpu")`` print the same stdout, line for line.
+    ``train_moe_dyskew`` stays on its own tests below: its random init
+    comes from ``jax.random``, whose streams torch cannot reproduce."""
+    name = example.__name__.rsplit(".", 1)[1]
+    runpy.run_path(os.path.join(ROOT, "examples", f"{name}.py"), run_name="__main__")
+    ref = capsys.readouterr().out.splitlines()
+    example.run(CPU)
+    port = capsys.readouterr().out.splitlines()
+    assert len(ref) == lines
+    for i, (a, b) in enumerate(zip(ref, port)):
+        assert b == a, f"line {i}"
+    assert len(port) == len(ref)
 
 
 def test_quickstart_link_balances():

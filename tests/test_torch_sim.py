@@ -8,98 +8,16 @@ is equal, recorded by wrapping ``AdaptiveLinkSim.tick`` and
 ``BatchedLinkSim.tick`` on both sides.  The trajectories are chaotic — one
 flipped mask changes the whole run — so equal masks are what makes equal
 results meaningful.  The port's own engine is also held to its legacy
-oracle, as the reference's is.
-
-``REF`` / ``PORT`` and the helpers below are shared by the other
-``test_torch_sim_*`` files.
+oracle, as the reference's is.  The helpers are in ``torch_sim_common``.
 """
-
-import contextlib
-import types
 
 import numpy as np
 import pytest
 
-import repro.core.admission as j_admission
-import repro.core.types as j_types
-import repro.runtime.fault_tolerance as j_ft
-import repro.sim.batched_link as j_batched
-import repro.sim.engine as j_engine
-import repro.sim.faults as j_faults
-import repro.sim.legacy as j_legacy
-import repro.sim.pipeline as j_pipeline
-import repro.sim.replay as j_replay
-import repro.sim.workload as j_workload
-import repro_torch.core.admission as t_admission
-import repro_torch.core.types as t_types
-import repro_torch.runtime.fault_tolerance as t_ft
-import repro_torch.sim.batched_link as t_batched
+from torch_sim_common import PORT, TOL, assert_results_equal, default_strategies, run_both
+
 import repro_torch.sim.engine as t_engine
-import repro_torch.sim.faults as t_faults
-import repro_torch.sim.legacy as t_legacy
-import repro_torch.sim.pipeline as t_pipeline
 import repro_torch.sim.replay as t_replay
-import repro_torch.sim.workload as t_workload
-
-TOL = dict(rtol=1e-9, atol=0.0)
-
-REF = types.SimpleNamespace(
-    name="ref", admission=j_admission, types=j_types, ft=j_ft, batched=j_batched,
-    engine=j_engine, faults=j_faults, legacy=j_legacy, pipeline=j_pipeline,
-    replay=j_replay, workload=j_workload, dev={},
-)
-PORT = types.SimpleNamespace(
-    name="port", admission=t_admission, types=t_types, ft=t_ft, batched=t_batched,
-    engine=t_engine, faults=t_faults, legacy=t_legacy, pipeline=t_pipeline,
-    replay=t_replay, workload=t_workload, dev={"device": "cpu"},
-)
-
-
-@contextlib.contextmanager
-def recorded_masks(m, monkeypatch):
-    """Every distribute mask the side ``m`` hands its event loop, in order."""
-    log = []
-    with monkeypatch.context() as mp:
-        for cls in (m.engine.AdaptiveLinkSim, m.batched.BatchedLinkSim):
-            def tick(self, *args, _orig=cls.tick, **kw):
-                out = _orig(self, *args, **kw)
-                log.append(np.array(out, copy=True))
-                return out
-            mp.setattr(cls, "tick", tick)
-        yield log
-
-
-def run_both(monkeypatch, build, min_ticks=0):
-    """``build(m)`` runs one workload with the modules of side ``m``; returns
-    (reference output, port output) after holding the masks equal."""
-    outs, logs = [], []
-    for m in (REF, PORT):
-        with recorded_masks(m, monkeypatch) as log:
-            outs.append(build(m))
-        logs.append(log)
-    ref_log, port_log = logs
-    assert len(port_log) == len(ref_log) >= min_ticks
-    for i, (a, b) in enumerate(zip(ref_log, port_log)):
-        assert a.shape == b.shape and a.dtype == b.dtype == bool, i
-        np.testing.assert_array_equal(a, b, err_msg=f"distribute mask of tick {i}")
-    return outs[0], outs[1]
-
-
-def assert_results_equal(ref, port):
-    """QueryResults (one or a list) field by field at the reference's bar."""
-    if not isinstance(ref, (list, tuple)):
-        ref, port = [ref], [port]
-    assert len(ref) == len(port)
-    for i, (a, b) in enumerate(zip(ref, port)):
-        for f in ("latency", "utilization", "bytes_moved_remote", "decision_overhead"):
-            np.testing.assert_allclose(getattr(b, f), getattr(a, f), err_msg=f"{i}: {f}", **TOL)
-        np.testing.assert_allclose(b.per_worker_busy, a.per_worker_busy, err_msg=f"{i}", **TOL)
-        for f in ("num_ticks", "rows_redistributed", "redistribution_applied", "preempted_rows"):
-            assert getattr(b, f) == getattr(a, f), (i, f)
-
-
-def default_strategies(m, kind):
-    return m.replay.default_strategies()[kind]
 
 
 # --------------------------------------------------------------------- #

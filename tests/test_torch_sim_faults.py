@@ -5,13 +5,13 @@ chained-stage pipelines.
 
 Each run feeds both sides the same seeded workload and holds the
 ``QueryResult``s (rtol 1e-9, counts exactly), the fault statistics and the
-distribute mask of every tick equal (helpers in ``test_torch_sim``).
+distribute mask of every tick equal (helpers in ``torch_sim_common``).
 """
 
 import numpy as np
 import pytest
 
-from test_torch_sim import PORT, REF, assert_results_equal, run_both
+from torch_sim_common import PORT, REF, assert_results_equal, run_both
 
 
 def _fcfg(m):

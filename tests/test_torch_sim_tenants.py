@@ -4,13 +4,13 @@ loop, and every registered policy run end to end.
 
 Each run feeds both sides the same seeded workload and holds the
 ``QueryResult``s (rtol 1e-9, counts exactly), the event counters and the
-distribute mask of every tick equal (helpers in ``test_torch_sim``).
+distribute mask of every tick equal (helpers in ``torch_sim_common``).
 """
 
 import numpy as np
 import pytest
 
-from test_torch_sim import PORT, REF, assert_results_equal, run_both
+from torch_sim_common import PORT, REF, assert_results_equal, run_both
 
 import repro.core.policy as j_policy
 from repro_torch.models.convert import state_from_numpy
