@@ -1,0 +1,119 @@
+"""Test support for the benchmark's own tests: the card marker, a fixture
+that skips a card test on a machine without a GPU, and a tiny stand-in for
+the benchmark's files (the same cells and traffic, configurations cut to a
+size the CPU runs in a second).
+
+The tiny tree also holds two state-space cells given only as data, the
+stand-ins of Mamba-2 cells that wait for the port to take the number of
+B/C groups from its configuration (it derives it from the head count):
+they keep the harness's, the reference's and the readers' state-space path
+under test."""
+
+from __future__ import annotations
+
+import json
+import shutil
+from pathlib import Path
+
+import pytest
+
+HERE = Path(__file__).resolve().parent
+REPO = HERE.parent
+
+OPTIMIZER = {"name": "adamw", "lr": 3e-4, "warmup_steps": 100, "total_steps": 10000, "weight_decay": 0.01,
+             "b1": 0.9, "b2": 0.95, "eps": 1e-8, "grad_clip": 1.0, "min_lr_frac": 0.1}
+INIT = {"embed_scale": 1.0, "head_scale": 0.02, "router_scale": 0.02}
+#: Limits for the tiny float32 models, whose program and reference agree to
+#: float32 rounding (about 1e-7 on every number).
+TINY_LIMITS = {"train": {"loss_gap": 1e-4, "grad_gap": 1e-3, "change_gap": 1e-3, "grad_diff": 1e-3,
+                         "change_diff": 1e-3, "rows_unmatched": 0},
+               "serve": {"logit_gap": 1e-4, "mean_gap": 1e-6, "tokens_out_of_vocab": 0}}
+TINY_CONFIGS = {
+    "granite-moe-1b-a400m": {
+        "name": "tiny-moe", "ep_shards": 4,
+        "model": {"name": "tiny-moe", "family": "moe", "num_layers": 2, "d_model": 64, "num_heads": 4,
+                  "num_kv_heads": 2, "head_dim": 16, "d_ff": 32, "vocab_size": 256, "rope_style": "full",
+                  "norm": "rmsnorm", "mlp_act": "swiglu", "tie_embeddings": True, "dtype": "float32",
+                  "remat": True, "moe": {"num_experts": 8, "top_k": 2, "expert_ff": 32, "capacity_factor": 1.25,
+                          "layout": "all", "adaptive": True}}},
+    "tiny-ssm": {
+        "name": "tiny-ssm", "ep_shards": 1,
+        "model": {"name": "tiny-ssm", "family": "ssm", "num_layers": 2, "d_model": 64, "num_heads": 0,
+                  "num_kv_heads": 0, "d_ff": 0, "vocab_size": 256, "rope_style": "none", "norm": "rmsnorm",
+                  "tie_embeddings": True, "dtype": "float32", "remat": True,
+                  "mamba": {"d_state": 16, "head_dim": 16, "expand": 2, "conv_width": 4, "chunk": 16}}},
+}
+#: The state-space stand-ins: cell -> (traffic, the cell whose end-to-end
+#: and per-layer metrics it shares, its kernels' roofline metric).
+SSM_CELLS = {"mamba2.train.text": ("text", "granite-moe.train.skewed", "ssd_scan_roofline.train"),
+             "mamba2.serve.batch": ("batch", "granite-moe.serve.skewed", "ssd_scan_roofline.serve")}
+TINY_TRAFFIC = {"batch": 4, "seq_len": 64, "num_shards": 4, "doc_len_mean": 20, "doc_len_min": 4,
+                "doc_len_max": 64, "prompts": 8, "prompt_len": 32, "decode_steps": 10, "traced_decode_steps": 3,
+                "traced_steps": 1}
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "h100: needs an NVIDIA H100 (CUDA); skipped elsewhere")
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; skips the test where there is none."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device on this machine: the test runs on the H100")
+    return torch.device("cuda", 0)
+
+
+def make_tiny_root(tmp: Path, dtype: str = "float32") -> Path:
+    """A checkout-shaped directory: BENCHMARK.json's cells, metrics and
+    traffic mixes (sizes cut), the configurations swapped for tiny ones."""
+    bench = with_ssm_cells(json.loads((REPO / "BENCHMARK.json").read_text()))
+    (tmp / "h100bench" / "configs").mkdir(parents=True)
+    (tmp / "h100bench" / "traffic").mkdir(parents=True)
+    shutil.copytree(HERE / "metrics", tmp / "h100bench" / "metrics")
+    for c in bench["configs"]:
+        tiny = dict(TINY_CONFIGS[c["name"]], optimizer=OPTIMIZER, init=INIT, limits=TINY_LIMITS)
+        tiny["model"] = dict(tiny["model"], dtype=dtype)
+        c["file"] = f"h100bench/configs/{c['name']}.json"
+        (tmp / c["file"]).write_text(json.dumps(tiny))
+    for f in (HERE / "traffic").glob("*.json"):
+        mix = json.loads(f.read_text())
+        mix.update({k: v for k, v in TINY_TRAFFIC.items() if k in mix})
+        (tmp / "h100bench" / "traffic" / f.name).write_text(json.dumps(mix))
+    (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
+    return tmp
+
+
+def with_ssm_cells(bench: dict) -> dict:
+    """``bench`` with the state-space stand-ins added as data: their
+    configuration, cells and scan roofline metrics, and their names on the
+    metrics the cells they follow report (the MoE kernels' roofline aside)."""
+    bench["configs"].append({"name": "tiny-ssm", "source": "arXiv:2405.21060", "file": "",
+                             "reduced": [], "why": "state-space layers"})
+    by_kind = {"train_tokens_per_s": "train", "gen_tokens_per_s": "serve"}
+    for cell, (traffic, follows, roofline) in SSM_CELLS.items():
+        bench["workloads"].append({"name": cell, "config": "tiny-ssm", "traffic": traffic, "chips": 1,
+                                   "why": "stand-in"})
+        for m in bench["end_to_end"] + bench["per_layer"]:
+            if follows in m.get("workloads", ()) and not m["name"].startswith("moe_kernels_roofline"):
+                m["workloads"].append(cell)
+        moves = next(n for n, kind in by_kind.items() if f".{kind}." in cell)
+        bench["per_layer"].append({"name": roofline, "unit": "%", "better": "higher", "source": "device_trace",
+                                   "layer": "kernels", "moves": moves, "workloads": [cell]})
+    return bench
+
+
+@pytest.fixture
+def tiny_root(tmp_path):
+    """The tiny tree, run with one intra-op thread: the tiny cells' ops gain
+    nothing from more, and six test workers would share the cores."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield make_tiny_root(tmp_path)
+    finally:
+        torch.set_num_threads(threads)

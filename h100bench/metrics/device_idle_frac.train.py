@@ -1,0 +1,7 @@
+"""Share of the traced training steps with no device record running, in %."""
+
+from h100bench.lib import readers
+
+
+def read(run):
+    return readers.idle_pct(run, "traced")
