@@ -59,7 +59,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import distributed
+from repro_torch import distributed, tracing
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config.base import ArchConfig
 from repro_torch.core import state_machine
@@ -354,34 +354,35 @@ def moe_apply(
     n_ep = ctx.num_ep_shards
     shard_loads = loads_e.reshape(n_ep, E // n_ep).sum(dim=-1)   # (n_ep,)
 
-    # ---- DySkew state machines (one per EP shard) --------------------- #
-    dk = moe_dyskew_config(moe.adaptive)
-    bytes_per_row = torch.full_like(shard_loads, 2.0 * d)
-    new_link, distribute = state_machine.tick(
-        state["link"],
-        dk,
-        rows_this_tick=shard_loads,
-        sync_time_this_tick=shard_loads,   # cost ∝ tokens (uniform experts)
-        batch_density=shard_loads,
-        bytes_per_row=bytes_per_row,
-        signal_this_tick=shard_loads > 0,
-    )
-    total_load = torch.clamp(loads_e.sum(), min=1.0)
-    ema = 0.9 * state["ema_loads"] + 0.1 * loads_e / total_load
-    new_state = {"link": new_link, "ema_loads": ema}
+    with tracing.span("moe.link"):
+        # ---- DySkew state machines (one per EP shard) ----------------- #
+        dk = moe_dyskew_config(moe.adaptive)
+        bytes_per_row = torch.full_like(shard_loads, 2.0 * d)
+        new_link, distribute = state_machine.tick(
+            state["link"],
+            dk,
+            rows_this_tick=shard_loads,
+            sync_time_this_tick=shard_loads,   # cost ∝ tokens (uniform experts)
+            batch_density=shard_loads,
+            bytes_per_row=bytes_per_row,
+            signal_this_tick=shard_loads > 0,
+        )
+        total_load = torch.clamp(loads_e.sum(), min=1.0)
+        ema = 0.9 * state["ema_loads"] + 0.1 * loads_e / total_load
+        new_state = {"link": new_link, "ema_loads": ema}
 
-    # ---- Effective capacity: the redistribution decision --------------- #
-    # Static mode: uniform c_static. Distributing: load-proportional caps
-    # inside the same total budget (idle capacity flows to hot experts).
-    # torch.round is half-to-even, as the reference's rounding is.
-    adaptive_caps = torch.clamp(
-        torch.round(ema * E * c_static), 1, c_buf
-    ).to(torch.int32)
-    expert_shard = torch.arange(E, device=dev) // (E // n_ep)
-    use_adaptive = distribute[expert_shard]                # (E,)
-    cap_e = torch.where(
-        use_adaptive, adaptive_caps, torch.full_like(adaptive_caps, c_static)
-    )
+        # ---- Effective capacity: the redistribution decision ----------- #
+        # Static mode: uniform c_static. Distributing: load-proportional caps
+        # inside the same total budget (idle capacity flows to hot experts).
+        # torch.round is half-to-even, as the reference's rounding is.
+        adaptive_caps = torch.clamp(
+            torch.round(ema * E * c_static), 1, c_buf
+        ).to(torch.int32)
+        expert_shard = torch.arange(E, device=dev) // (E // n_ep)
+        use_adaptive = distribute[expert_shard]                # (E,)
+        cap_e = torch.where(
+            use_adaptive, adaptive_caps, torch.full_like(adaptive_caps, c_static)
+        )
 
     # ---- Sorted gather dispatch ---------------------------------------- #
     order, slot_sorted, keep, src, valid = dispatch_plan(

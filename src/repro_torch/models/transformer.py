@@ -34,7 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import distributed
+from repro_torch import distributed, tracing
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config.base import ArchConfig
 from repro_torch.models.layers import basic
@@ -255,10 +255,11 @@ def _apply_layer(
     new_moe_state = None
     h = basic.norm_apply(lp["norm1"], x, cfg.norm)
     if "attn" in lp:
-        attn_out, new_cache = attention_apply(
-            lp["attn"], h, cfg=cfg, positions=positions,
-            cache=cache, cache_index=cache_index, group=ctx.ep_group,
-        )
+        with tracing.span("attn"):
+            attn_out, new_cache = attention_apply(
+                lp["attn"], h, cfg=cfg, positions=positions,
+                cache=cache, cache_index=cache_index, group=ctx.ep_group,
+            )
         x = x + attn_out
     else:
         mamba_out, new_ssm = mamba_apply(lp["mamba"], h, cfg=cfg, state=cache, scan=ops.scan,
@@ -272,16 +273,21 @@ def _apply_layer(
         x = x + mamba_out
 
     if "moe" in lp:
-        h = basic.norm_apply(lp["norm2"], x, cfg.norm)
-        # Stateless callers (e.g. serving without carried DySkew state) get
-        # a fresh INIT-state link on every call: under the eager policy it
-        # is distributing on its first tick, so the adaptive capacities are
-        # live in serving too.
-        stateless = moe_state is None
-        ms = moe_state_init(cfg, ctx, x.device) if stateless else moe_state
-        moe_out, new_moe_state, moe_metrics = moe_apply(
-            lp["moe"], h, cfg=cfg, state=ms, ctx=ctx, ops=ops
-        )
+        with tracing.span("moe"):
+            h = basic.norm_apply(lp["norm2"], x, cfg.norm)
+            # Stateless callers (e.g. serving without carried DySkew state)
+            # get a fresh INIT-state link on every call: under the eager
+            # policy it is distributing on its first tick, so the adaptive
+            # capacities are live in serving too.
+            stateless = moe_state is None
+            if stateless:
+                with tracing.span("moe.link"):
+                    ms = moe_state_init(cfg, ctx, x.device)
+            else:
+                ms = moe_state
+            moe_out, new_moe_state, moe_metrics = moe_apply(
+                lp["moe"], h, cfg=cfg, state=ms, ctx=ctx, ops=ops
+            )
         if stateless:
             new_moe_state = None
         for k, v in moe_metrics.items():
@@ -416,9 +422,10 @@ def forward(
         block_metrics.append(metrics)
         block_moe.append(out_moe)
 
-    x = basic.norm_apply(fsdp.gather(params["final_norm"], plan["final_norm"], ctx), x, cfg.norm)
-    head = fsdp.gather(params["lm_head"], plan["lm_head"], ctx) if "lm_head" in params else embed
-    logits = basic.logits_apply(head, x, cfg.vocab_size, vocab)
+    with tracing.span("head"):
+        x = basic.norm_apply(fsdp.gather(params["final_norm"], plan["final_norm"], ctx), x, cfg.norm)
+        head = fsdp.gather(params["lm_head"], plan["lm_head"], ctx) if "lm_head" in params else embed
+        logits = basic.logits_apply(head, x, cfg.vocab_size, vocab)
 
     aux: Dict[str, Any] = {
         "metrics": {

@@ -36,7 +36,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import distributed
+from repro_torch import distributed, tracing
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.ordered_sums import div
 from repro_torch.models.layers.moe import KERNEL_OPS, DispatchOps, SpmdCtx
@@ -139,8 +139,10 @@ def make_grad_fn(
         with torch.enable_grad():
             if get_flags().cast_before_gather:
                 p_live = _cast_before_gather(p_live)
-            loss, aux = model.loss(p_live, batch, dyskew=dyskew, ctx=ctx, ops=ops)
-            grads = torch.autograd.grad(loss, live, allow_unused=True)
+            with tracing.span("step.forward"):
+                loss, aux = model.loss(p_live, batch, dyskew=dyskew, ctx=ctx, ops=ops)
+            with tracing.span("step.backward"), tracing.calling_thread():
+                grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         it = iter(grads)
         aux = dict(aux, metrics={k: v.detach() for k, v in aux["metrics"].items()})
@@ -225,7 +227,7 @@ def make_train_step(
                 grads, scattered if scattered is not None else zip_map(lambda g: False, grads)
             )
 
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("step.optimizer"):
             new_params, new_opt, stats = opt_update(
                 opt_cfg, grads, state["opt"], params, state["step"], shards
             )
