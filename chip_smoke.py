@@ -199,6 +199,8 @@ REPLACES = {
     "ssd_state_scan": "src/repro/kernels/ssd_scan/kernel.py:43",
     "ssd_state_scan_bwd": "src/repro/models/layers/mamba2.py:132 (no Pallas backward: "
                           "repro differentiates this lax.scan)",
+    "moe_combine": "src/repro/models/layers/moe.py moe_apply (no Pallas kernel: XLA's gathers)",
+    "moe_combine_bwd": "src/repro/models/layers/moe.py moe_apply (no Pallas kernel: autodiff of XLA's gathers)",
 }
 SOURCES = {
     "topk_gating": "src/repro_torch/kernels/csrc/topk_gating.cu",
@@ -206,6 +208,8 @@ SOURCES = {
     "dispatch_gather": "src/repro_torch/kernels/csrc/dispatch.cu",
     "ssd_state_scan": "src/repro_torch/kernels/csrc/ssd_state_scan.cu",
     "ssd_state_scan_bwd": "src/repro_torch/kernels/csrc/ssd_state_scan.cu",
+    "moe_combine": "src/repro_torch/kernels/csrc/combine.cu",
+    "moe_combine_bwd": "src/repro_torch/kernels/csrc/combine.cu",
 }
 
 # The device kernels of csrc/, as the profiler names them.
@@ -213,6 +217,7 @@ PORT_KERNEL_NAMES = (
     "topk_gating_group_kernel", "topk_gating_warp_kernel", "histogram_block_kernel",
     "histogram_cluster_kernel", "dispatch_gather_kernel", "dispatch_bytes_kernel",
     "ssd_scan_vec_kernel", "ssd_scan_scalar_kernel", "ssd_scan_bwd_kernel", "ssd_scan_bwd_decay_kernel",
+    "moe_combine_fwd_kernel", "moe_combine_bwd_kernel",
 )
 
 
@@ -705,6 +710,203 @@ def main_path_plan(torch, gen, arch, tokens: int, dtype):
     return x, logits, flat_e.contiguous(), src.contiguous(), valid.contiguous()
 
 
+#: The combine's weight gradients against the contract's: a dot product of
+#: d float32 products, summed by lanes and a shuffle tree in the kernel and
+#: by one PyTorch sum in the contract; held to 2^-13 of the sum of the
+#: products' magnitudes (two orders of d <= 7,168 terms part by far less).
+COMBINE_DW_RTOL = 2.0 ** -13
+#: The benchmark's granite serve cell: rounds of 64 prompts of 1,024.
+COMBINE_SERVE_PROMPTS = 64
+
+
+def same_bits(torch, a, b) -> bool:
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return a.dtype == b.dtype and torch.equal(a.view(ints[a.element_size()]), b.view(ints[b.element_size()]))
+
+
+def combine_random(torch, gen, T, k, S, d, dtype, p_keep=0.8):
+    """A combine's inputs with each pick kept at ``p_keep`` (at most S of
+    them, each on a slot of its own; S for a dropped pick), random rows,
+    weights and gradient."""
+    picked = torch.nonzero(torch.rand((T * k,), generator=gen, device="cuda") < p_keep).squeeze(1)[:S]
+    slot = torch.full((T * k,), S, dtype=torch.int32, device="cuda")
+    slot[picked] = torch.randperm(max(S, 1), generator=gen, device="cuda")[:picked.numel()].to(torch.int32)
+    return (torch.randn((S, d), generator=gen, device="cuda").to(dtype), slot.view(T, k),
+            torch.rand((T, k), generator=gen, device="cuda"),
+            torch.randn((T, d), generator=gen, device="cuda").to(dtype))
+
+
+def combine_plan(torch, gen, arch, tokens: int, dtype, alpha: float = 0.6):
+    """A combine's inputs as one MoE layer of ``arch`` makes them: the
+    routing plan at the uniform capacity for router logits of random
+    activations skewed by a Zipf ``alpha`` bias (picks over capacity
+    dropped), random expert outputs for every slot, and a random gradient
+    of the output."""
+    import numpy as np
+
+    from repro_torch.config.base import get_config
+    from repro_torch.kernels.histogram.ref import load_histogram_ref
+    from repro_torch.kernels.topk_gating.ref import topk_gating_ref
+    from repro_torch.models.layers.moe import capacities, dispatch_plan
+
+    cfg = get_config(arch)
+    d, E, k = cfg.d_model, cfg.moe.num_experts, cfg.moe.top_k
+    x = torch.randn((tokens, d), generator=gen, device="cuda")
+    router = 0.02 * torch.randn((d, E), generator=gen, device="cuda")
+    probs = 1.0 / np.arange(1, E + 1) ** alpha
+    bias = torch.tensor(np.log(probs / probs.sum()), dtype=torch.float32, device="cuda")
+    w, idx = topk_gating_ref(x @ router + (bias - bias.mean()), k)
+    flat_e = idx.reshape(-1)
+    c_static, c_buf = capacities(cfg, tokens)
+    cap = torch.full((E,), c_static, dtype=torch.int32, device="cuda")
+    order, slot_sorted, _, _, _ = dispatch_plan(flat_e, load_histogram_ref(flat_e, E), cap, c_buf=c_buf, top_k=k)
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+    S = E * c_buf
+    del x, router, idx, flat_e, order, slot_sorted
+    return (torch.randn((S, d), generator=gen, device="cuda").to(dtype), slot.reshape(tokens, k).to(torch.int32),
+            w, torch.randn((tokens, d), generator=gen, device="cuda").to(dtype))
+
+
+def combine_case(torch, name, y_flat, slot, w, dy, timed):
+    """The combine's two kernels on one input, each against the contract
+    (``combine/ref.py``) and against the plain loop (``PLAIN_OPS.combine``,
+    differentiated by autograd), and each run twice for the same bits.
+
+    Forward: the contract's bits; in float32 the loop's bits too, in
+    bfloat16 within (3k + 1) bfloat16 half-steps (2^-8) of the sum of the
+    picks' magnitudes, the most the loop's k weight casts, k products and k
+    sums can move it.  Backward: d_y_flat the contract's bits (and the
+    loop's in float32; in bfloat16 within 2^-6 of |w dy|, the loop's cast
+    weight and rounded product); d_w within ``COMBINE_DW_RTOL`` of the sum
+    of its products' magnitudes against the contract (and the loop's in
+    float32; in bfloat16 2^-6 of it, the loop's rounded products and sum).
+    Returns a row for each kernel."""
+    from repro_torch.kernels.combine.kernel import moe_combine
+    from repro_torch.kernels.combine.kernel_bwd import moe_combine_bwd
+    from repro_torch.kernels.combine.ref import moe_combine_bwd_ref, moe_combine_contract, moe_combine_ref
+
+    (S, d), (T, k) = y_flat.shape, slot.shape
+    f32 = y_flat.dtype == torch.float32
+    kept = int((slot < S).sum())
+    y_k, y_k2 = moe_combine(y_flat, slot, w), moe_combine(y_flat, slot, w)
+    torch.cuda.synchronize()
+    check(y_k.dtype == y_flat.dtype and tuple(y_k.shape) == (T, d), f"{name}: y type or shape")
+    check(same_bits(torch, y_k, y_k2), f"{name}: two forward runs differ")
+    check(torch.equal(y_k, moe_combine_contract(y_flat, slot, w)), f"{name}: y differs from the contract")
+    y_loop = moe_combine_ref(y_flat, slot, w)
+    mag = moe_combine_contract(y_flat.abs().float(), slot, w.abs())
+    fwd_err = (y_k.float() - y_loop.float()).abs()
+    band = (3 * k + 1) * 2.0 ** -8 * mag
+    if f32:
+        check(torch.equal(y_k, y_loop), f"{name}: y differs from the loop in float32")
+    else:
+        check(bool((fwd_err <= band).all()), f"{name}: y off the loop's band")
+    fwd = {"kernel": "moe_combine", "case": name, "shape": [T, k, S, d],
+           "dtype": str(y_flat.dtype).replace("torch.", ""), "kept_frac": kept / max(T * k, 1),
+           "contract_equal": True, "runs_equal": True,
+           "max_abs_err": float(fwd_err.max()) if fwd_err.numel() else 0.0,
+           "loop_band_used": float((fwd_err / band.clamp_min(1e-30)).max()) if fwd_err.numel() else 0.0}
+    del y_k2, y_loop, mag, fwd_err, band
+
+    dyf_k, dw_k = moe_combine_bwd(dy, y_flat, slot, w)
+    dyf_k2, dw_k2 = moe_combine_bwd(dy, y_flat, slot, w)
+    torch.cuda.synchronize()
+    check(dyf_k.dtype == y_flat.dtype and dyf_k.shape == y_flat.shape, f"{name}: d_y_flat type or shape")
+    check(dw_k.dtype == torch.float32 and dw_k.shape == w.shape, f"{name}: d_w type or shape")
+    check(same_bits(torch, dyf_k, dyf_k2) and same_bits(torch, dw_k, dw_k2), f"{name}: two backward runs differ")
+    del dyf_k2, dw_k2
+    dyf_c, dw_c = moe_combine_bwd_ref(dy, y_flat, slot, w)
+    check(torch.equal(dyf_k, dyf_c), f"{name}: d_y_flat differs from the contract")
+    dw_mag = moe_combine_bwd_ref(dy.abs(), y_flat.abs(), slot, w)[1]
+    dw_err = float((dw_k - dw_c).abs().max()) if dw_k.numel() else 0.0
+    check(bool(((dw_k - dw_c).abs() <= COMBINE_DW_RTOL * dw_mag).all()), f"{name}: d_w off the contract ({dw_err})")
+    del dyf_c, dw_c
+    yf = y_flat.clone().requires_grad_(True)
+    ww = w.clone().requires_grad_(True)
+    with torch.enable_grad():
+        dyf_l, dw_l = torch.autograd.grad(moe_combine_ref(yf, slot, ww), (yf, ww), dy)
+    del yf, ww
+    dw_l_err = (dw_k - dw_l).abs()
+    if f32:
+        check(torch.equal(dyf_k, dyf_l), f"{name}: d_y_flat differs from the loop's in float32")
+        check(bool((dw_l_err <= COMBINE_DW_RTOL * dw_mag).all()), f"{name}: d_w off the loop's")
+    else:
+        wdy = moe_combine_bwd_ref(dy.abs(), y_flat, slot, w.abs())[0].float()
+        check(bool(((dyf_k.float() - dyf_l.float()).abs() <= 2.0 ** -6 * wdy).all()),
+              f"{name}: d_y_flat off the loop's band")
+        check(bool((dw_l_err <= 2.0 ** -6 * dw_mag).all()), f"{name}: d_w off the loop's band")
+        del wdy
+    bwd = {"kernel": "moe_combine_bwd", "case": name, "shape": [T, k, S, d], "dtype": fwd["dtype"],
+           "kept_frac": fwd["kept_frac"], "d_y_flat_contract_equal": True, "runs_equal": True,
+           "max_abs_err": dw_err, "d_w_loop_max_abs_err": float(dw_l_err.max()) if dw_l_err.numel() else 0.0,
+           "d_w_rtol": COMBINE_DW_RTOL}
+    del dyf_k, dw_k, dyf_l, dw_l, dw_l_err, dw_mag
+    if timed:
+        row = d * y_flat.element_size()
+        fwd_bytes = kept * row + T * row + 8 * T * k
+        bwd_bytes = T * row + kept * row + S * row + 12 * T * k + S
+        b_ms, by = bound(fwd_bytes, 2 * kept * d)
+        fwd.update(kernel_ms=time_ms(torch, lambda: moe_combine(y_flat, slot, w)),
+                   host_ms=host_ms(torch, lambda: moe_combine(y_flat, slot, w), iters=20),
+                   plain_ms=time_ms(torch, lambda: moe_combine_ref(y_flat, slot, w)),
+                   library_ms=None,   # no single PyTorch call computes this sum
+                   bytes=fwd_bytes, bound_ms=b_ms, bound_by=by)
+        # The wrapper's call: its ownership bytes (a fill and a scatter) and
+        # the kernel.  The plain time is the loop's autograd backward, eager:
+        # its index gradients sort and walk the clamped dropped picks.
+        b_ms, by = bound(bwd_bytes, 3 * kept * d)
+        yf = y_flat.clone().requires_grad_(True)
+        ww = w.clone().requires_grad_(True)
+        with torch.enable_grad():
+            y_graph = moe_combine_ref(yf, slot, ww)
+        bwd.update(kernel_ms=time_ms(torch, lambda: moe_combine_bwd(dy, y_flat, slot, w)),
+                   host_ms=host_ms(torch, lambda: moe_combine_bwd(dy, y_flat, slot, w), iters=20),
+                   plain_ms=time_ms(torch, lambda: torch.autograd.grad(y_graph, (yf, ww), dy, retain_graph=True),
+                                    iters=3, reps=3, warmup=1, graph=False),
+                   plain_timed="eager", library_ms=None,
+                   bytes=bwd_bytes, bound_ms=b_ms, bound_by=by)
+        del y_graph, yf, ww
+    return [fwd, bwd]
+
+
+def combine_checks(torch, gen):
+    """The combine at the main path's shapes (granite trained and served:
+    its train step, its serve prefill, a decode step; kimi-k2's d_model
+    7,168), timed, then awkward shapes."""
+    cases = []
+    for name, arch, tokens in (("train", MOE_ARCH, TRAIN_BATCH * TRAIN_SEQ),
+                               ("prefill", MOE_ARCH, COMBINE_SERVE_PROMPTS * PREFILL_LEN),
+                               ("decode", MOE_ARCH, COMBINE_SERVE_PROMPTS),
+                               ("kimi_train", KIMI_ARCH, TRAIN_BATCH * TRAIN_SEQ)):
+        inputs = combine_plan(torch, gen, arch, tokens, torch.bfloat16)
+        cases += combine_case(torch, f"{name}_bf16", *inputs, timed=True)
+        if name == "train":
+            cases += combine_case(torch, "train_f32", *(t.float() if t.is_floating_point() else t
+                                                        for t in inputs), timed=True)
+        del inputs
+        torch.cuda.empty_cache()
+    for name, (T, k, S, d, dtype, p) in {
+        "T1_k1": (1, 1, 4, 64, torch.bfloat16, 1.1),
+        "T33_k32_f32": (33, 32, 2000, 128, torch.float32, 0.7),
+        "T1500_two_vectors_a_lane": (1500, 8, 20000, 1024, torch.bfloat16, 0.8),
+        "d1000_f32_ragged_piece": (300, 8, 3000, 1000, torch.float32, 0.8),
+        "d1001_bf16_scalar": (77, 3, 400, 1001, torch.bfloat16, 0.7),
+        "d7_f32_scalar": (50, 4, 300, 7, torch.float32, 0.7),
+        "all_dropped": (40, 8, 500, 256, torch.bfloat16, 0.0),
+        "all_kept": (40, 8, 320, 256, torch.bfloat16, 1.1),
+        "T0": (0, 8, 64, 128, torch.bfloat16, 0.8),
+    }.items():
+        cases += combine_case(torch, name, *combine_random(torch, gen, T, k, S, d, dtype, p), timed=False)
+    y_flat, slot, w, dy = combine_random(torch, gen, 60, 4, 500, 64, torch.float32)
+    shifted = torch.empty(y_flat.numel() + 1, device="cuda")[1:].view(y_flat.shape)   # 4 bytes off the grid
+    shifted.copy_(y_flat)
+    cases += combine_case(torch, "misaligned_y_flat", shifted, slot, w, dy, timed=False)
+    del y_flat, slot, w, dy, shifted
+    torch.cuda.empty_cache()
+    return cases
+
+
 def phase_kernel_checks(torch):
     from repro_torch.kernels.dispatch.kernel import WARPS_PER_BLOCK, launch_blocks
     from repro_torch.kernels.histogram.kernel import SINGLE_BLOCK_MAX
@@ -864,6 +1066,9 @@ def phase_kernel_checks(torch):
     g, out = ssd_bwd_inputs(torch, gen, st, dec)
     cases.append(ssd_bwd_case(torch, "bwd_decays_0_and_1", g, out, dec, torch.float32, False))
     del st, dec, g, out, shifted
+    torch.cuda.empty_cache()
+
+    cases += combine_checks(torch, gen)
     torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "cases": cases})
     return cases
@@ -1090,8 +1295,9 @@ def served_model(torch, arch, layers=None, prompt=PREFILL_LEN, ctx=None):
 
 def expected_launches(cfg):
     """Launches of each kernel in one prefill and DECODE_STEPS decode steps:
-    the MoE kernels once per MoE layer and step, the scan once per Mamba
-    layer and prefill (decode is the recurrent update, with no scan)."""
+    the MoE kernels (the combine among them) once per MoE layer and step,
+    the scan once per Mamba layer and prefill (decode is the recurrent
+    update, with no scan); no backward."""
     from repro_torch.models import transformer
 
     nb = transformer.num_blocks(cfg)
@@ -1099,7 +1305,7 @@ def expected_launches(cfg):
     n_mamba = len(transformer.mamba_layer_positions(cfg)) * nb
     moe = n_moe * (1 + DECODE_STEPS)
     return {"topk_gating": moe, "load_histogram": moe, "dispatch_gather": moe,
-            "ssd_state_scan": n_mamba, "ssd_state_scan_bwd": 0}
+            "ssd_state_scan": n_mamba, "ssd_state_scan_bwd": 0, "moe_combine": moe, "moe_combine_bwd": 0}
 
 
 def serve_pass(torch, served, forced=None):
@@ -1484,9 +1690,16 @@ def moe_path_check(torch, served):
     versions, with the same carried link state, as the moe phase does for
     granite: router logits, picks, counts, plan, buffer, link states and
     metrics equal, gate weights at the gating check's band.  Then the MoE
-    layer on the hidden state it was given, both ways: the outputs differ
-    only where a gate weight's float32 last bits move its bfloat16 rounding,
-    so they are held to two bfloat16 steps (2^-7) of the largest |y|."""
+    layer on the hidden state it was given, through the kernels and through
+    the plain versions with the combine's contract (``combine/ref.py``, the
+    kernel's arithmetic in plain PyTorch): the outputs differ only where a
+    gate weight's float32 last bits move the rounded sum, so they are held
+    to two bfloat16 steps (2^-7) of the largest |y|.  The plain loop's
+    combine (``PLAIN_OPS``), which rounds every product and sum to
+    bfloat16, is printed beside it against the same band."""
+    import dataclasses
+
+    from repro_torch.kernels.combine.ref import moe_combine_contract
     from repro_torch.models import transformer
     from repro_torch.models.layers import moe
     from repro_torch.models.param import tree_map
@@ -1517,16 +1730,22 @@ def moe_path_check(torch, served):
     st = tree_map(lambda a: a[0], dk["l0"])
     h = x_k.reshape(B, S, cfg.d_model)
     y_k, _, _ = moe.moe_apply(p_moe, h, cfg=cfg, state=st, ctx=ctx)
-    y_p, _, _ = moe.moe_apply(p_moe, h, cfg=cfg, state=st, ctx=ctx, ops=moe.PLAIN_OPS)
+    y_p, _, _ = moe.moe_apply(p_moe, h, cfg=cfg, state=st, ctx=ctx,
+                              ops=dataclasses.replace(moe.PLAIN_OPS, combine=moe_combine_contract))
     y_err = float((y_k.float() - y_p.float()).abs().max())
     y_scale = float(y_p.float().abs().max())
     check(bool(torch.isfinite(y_k).all()), f"{where}: y not finite")
     check(y_err <= 2.0 ** -7 * y_scale, f"{where}: y {y_err} off the plain path (scale {y_scale})")
+    del y_p
+    y_l, _, _ = moe.moe_apply(p_moe, h, cfg=cfg, state=st, ctx=ctx, ops=moe.PLAIN_OPS)
+    loop_err = float((y_k.float() - y_l.float()).abs().max())
+    del y_l
     out = {"tokens": B * S, "slots": slots, "valid_frac": valid_frac, "plan_equal": True,
            "buffer_equal": True, "gate_weight_max_abs_err": float((w_k - w_p).abs().max()),
            "y_max_abs_err": y_err, "y_scale": y_scale, "y_band": 2.0 ** -7,
+           "y_loop_combine_max_abs_err": loop_err,
            "logit_max_abs_gap": logit_gap, "greedy_agree_share": agree}
-    del y_k, y_p, h, x_k
+    del y_k, h, x_k
     torch.cuda.empty_cache()
     return out
 
@@ -1617,7 +1836,7 @@ def phase_families(torch, profile=False):
         if cfg.kv_cache_dtype == "int8":
             row["int8_cache"] = int8_cache_check(torch, served, run)
         if cfg.moe is not None:
-            for name in ("topk_gating", "load_histogram", "dispatch_gather"):
+            for name in ("topk_gating", "load_histogram", "dispatch_gather", "moe_combine"):
                 check(got[name] == 1 + DECODE_STEPS, f"{arch}: {name} launched {got[name]} times")
             counts = got
             row["kernel_path"] = moe_path_check(torch, served)
@@ -2469,12 +2688,16 @@ def tree_pairs(a, b):
 def step_one_checks(torch, model, data_cfg, card, ctx=None, prepare=None):
     """Step 1's loss and gradients from one set of params and one batch:
     through the kernels twice, through the plain versions on the kernel
-    path's forward values, and through the plain versions on their own.
+    path's forward values (the combine's contract, ``combine/ref.py``, in
+    place of the plain loop, which rounds every product and sum to the
+    model's type where the kernel sums in float32), and through the plain
+    versions on their own.
     ``ctx`` sets the token groups (default one); ``prepare`` is applied to
     the drawn params first."""
     import dataclasses
 
     from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels.combine.ref import moe_combine_contract
     from repro_torch.models import transformer
     from repro_torch.models.layers.moe import KERNEL_OPS, PLAIN_OPS, SpmdCtx
     from repro_torch.train.step import batch_to, make_grad_fn
@@ -2492,14 +2715,14 @@ def step_one_checks(torch, model, data_cfg, card, ctx=None, prepare=None):
     (loss_k, aux_k, grads_k), (_, _, grads_k2) = runs
     del runs
     n_moe = len(transformer.moe_layer_positions(model.cfg)) * transformer.num_blocks(model.cfg)
-    # Every leaf bit-equal over two kernel runs: the gating and dispatch
-    # backwards are deterministic, and so is all that follows them.
+    # Every leaf bit-equal over two kernel runs: the gating, dispatch and
+    # combine backwards are deterministic, and so is all that follows them.
     for key, a, b in tree_pairs(grads_k, grads_k2):
         check(torch.equal(a, b), f"train step 1: two kernel runs give other {key} gradients")
     del grads_k2
 
-    loss_p, aux_p, grads_p = make_grad_fn(model, ctx, ops=dataclasses.replace(PLAIN_OPS, gating=picks.replay))(
-        params, batch, dyskew)
+    loss_p, aux_p, grads_p = make_grad_fn(model, ctx, ops=dataclasses.replace(
+        PLAIN_OPS, gating=picks.replay, combine=moe_combine_contract))(params, batch, dyskew)
     check(picks.replayed == len(picks.calls) == 2 * n_moe, "train step 1: the plain path's gating calls")
     grad_tol = TRAIN_GRAD_TOL if model.cfg.dtype == "float32" else TRAIN_GRAD_TOL_BF16
     loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
@@ -2556,7 +2779,8 @@ def phase_train(torch, card="cuda", profile=False):
     # ---- 4 steps through the loop: the counted main path ------------- #
     n_moe = len(transformer.moe_layer_positions(cfg)) * transformer.num_blocks(cfg)
     want = {"topk_gating": 2 * n_moe * TRAIN_STEPS, "load_histogram": 2 * n_moe * TRAIN_STEPS,
-            "dispatch_gather": 2 * n_moe * TRAIN_STEPS, "ssd_state_scan": 0, "ssd_state_scan_bwd": 0}
+            "dispatch_gather": 2 * n_moe * TRAIN_STEPS, "ssd_state_scan": 0, "ssd_state_scan_bwd": 0,
+            "moe_combine": 2 * n_moe * TRAIN_STEPS, "moe_combine_bwd": n_moe * TRAIN_STEPS}
     out, counts, loop_row = counted_loop(torch, cfg, data_cfg, opt_cfg, card, want)
     hist = out["history"]
     row.update(loop_row, moe_dropped_frac=[h["moe_dropped_frac"] for h in hist],
@@ -2734,7 +2958,8 @@ def phase_train_mamba(torch, card="cuda", profile=False):
 
     # ---- 4 bf16 steps through the loop: the counted main path -------- #
     want = {"topk_gating": 0, "load_histogram": 0, "dispatch_gather": 0,
-            "ssd_state_scan": 2 * n_mamba * TRAIN_STEPS, "ssd_state_scan_bwd": n_mamba * TRAIN_STEPS}
+            "ssd_state_scan": 2 * n_mamba * TRAIN_STEPS, "ssd_state_scan_bwd": n_mamba * TRAIN_STEPS,
+            "moe_combine": 0, "moe_combine_bwd": 0}
     out, counts, loop_row = counted_loop(torch, cfg, data_cfg, opt_cfg, card, want)
     row.update(loop_row)
     state = out["state"]
@@ -4718,7 +4943,8 @@ ROOFLINE_ARCHS = (MOE_ARCH, SSM_ARCH, "whisper-base", "pixtral-12b", "qwen1.5-32
 PEAK_BAND = (0.9, 1.2)
 #: Timed calls of each step (the median is its time), decode steps timed.
 ROOFLINE_TIMED, ROOFLINE_DECODES = 3, 8
-KERNEL_NAMES = ("topk_gating", "load_histogram", "dispatch_gather", "ssd_state_scan", "ssd_state_scan_bwd")
+KERNEL_NAMES = ("topk_gating", "load_histogram", "dispatch_gather", "ssd_state_scan", "ssd_state_scan_bwd",
+                "moe_combine", "moe_combine_bwd")
 
 
 def as_meta(torch, tree):
@@ -5015,7 +5241,8 @@ def run_phases(torch, args, smi, pending, t_script) -> int:
         phase_mamba(torch)
         # Each model's counts are read from its own serve run: the MoE
         # kernels from granite's, the scan from mamba2's.
-        for arch, kernels_of_path in ((MOE_ARCH, ("topk_gating", "load_histogram", "dispatch_gather")),
+        for arch, kernels_of_path in ((MOE_ARCH, ("topk_gating", "load_histogram", "dispatch_gather",
+                                                  "moe_combine")),
                                       (SSM_ARCH, ("ssd_state_scan",))):
             served = served_model(torch, arch)
             got, row, run = phase_serve(torch, served)
@@ -5045,7 +5272,8 @@ def run_phases(torch, args, smi, pending, t_script) -> int:
     rows = []
     prefill_case = {"topk_gating": "prefill_bf16", "load_histogram": "prefill",
                     "dispatch_gather": "prefill_bf16", "ssd_state_scan": "prefill_f32",
-                    "ssd_state_scan_bwd": "train_f32"}
+                    "ssd_state_scan_bwd": "train_f32", "moe_combine": "train_bf16",
+                    "moe_combine_bwd": "train_bf16"}
     for kname, case_name in prefill_case.items():
         mine = [c for c in cases if c["kernel"] == kname]
         c = next(c for c in mine if c["case"] == case_name)

@@ -3,6 +3,8 @@
 dispatch     — routing-plan gather (the redistribution data movement)
 histogram    — destination load counts (skew-model input, every step)
 topk_gating  — fused softmax + top-k routing
+combine      — the MoE combine: each token's kept picks' expert outputs,
+               weighted and summed, and its backward (training)
 ssd_scan     — Mamba-2 inter-chunk state scan (every Mamba layer's prefill
                and training forward) and its backward (training)
 
@@ -10,7 +12,8 @@ Each kernel ships kernel.py (the CUDA launch wrapper, which counts its
 launches), ref.py (the plain PyTorch version) and ops.py (CUDA tensor →
 kernel or raise; CPU tensor → plain version); the scan's backward has a
 wrapper of its own, ssd_scan/kernel_bwd.py, under the ``autograd.Function``
-in ssd_scan/ops.py.  The CUDA C++ sources live in
+in ssd_scan/ops.py, and so has the combine's backward,
+combine/kernel_bwd.py, under combine/ops.py's.  The CUDA C++ sources live in
 csrc/ and are built for sm_90a at first use by ``_loader``.
 """
 
@@ -18,6 +21,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels.combine import kernel as _combine
+from repro_torch.kernels.combine import kernel_bwd as _combine_bwd
 from repro_torch.kernels.dispatch import kernel as _dispatch
 from repro_torch.kernels.histogram import kernel as _histogram
 from repro_torch.kernels.ssd_scan import kernel as _ssd_scan
@@ -30,6 +35,8 @@ _MODULES = {
     "dispatch_gather": _dispatch,
     "ssd_state_scan": _ssd_scan,
     "ssd_state_scan_bwd": _ssd_scan_bwd,
+    "moe_combine": _combine,
+    "moe_combine_bwd": _combine_bwd,
 }
 
 

@@ -53,6 +53,14 @@ _SIGNATURES = {
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, _c_ptr,
     ),
+    "dyskew_moe_combine": (
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _c_ptr,
+    ),
+    "dyskew_moe_combine_bwd": (
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _c_ptr,
+    ),
     "dyskew_ssd_state_scan": (
         _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, _c_ptr,

@@ -20,9 +20,10 @@ groups with C_buf = headroom × uniform capacity of a group; the *effective*
 per-expert capacity is data, not shape.  Dispatch is gather-based (sort by
 group and expert, rank within segment).  The three steps that ``repro`` has
 Pallas kernels for — router softmax/top-k/renormalise, per-expert counts,
-buffer build — go through ``repro_torch.kernels``: hand-written CUDA
-kernels for tensors on the GPU, their plain versions for tensors on the
-CPU.  The expert matrix products stay batched ``torch`` products.
+buffer build — and the default combine go through ``repro_torch.kernels``:
+hand-written CUDA kernels for tensors on the GPU, their plain versions for
+tensors on the CPU.  The expert matrix products stay batched ``torch``
+products.
 
 Token groups follow ``repro``'s G axis: each group has its own capacity,
 sort, ranks and buffer rows, and the link reads the loads summed over all
@@ -42,9 +43,9 @@ histogram, the link's tick and the routing plan run whole on every rank,
 the same bits on each; the slots are expert-major, so a shard's slots are
 one contiguous range of ``src`` / ``valid``, and the gather kernel fills
 only those.  The default combine all-gathers the expert outputs over the
-group; H9 (``moe_scatter_combine``) adds this rank's weighted outputs by
-token and all-reduces the partial ``y`` (T·d on the wire instead of
-E·C·d).  No token moves between ranks.  The router stays whole on every
+group and combines them as one process does; H9 (``moe_scatter_combine``)
+adds this rank's weighted outputs by token and all-reduces the partial
+``y`` (T·d on the wire instead of E·C·d).  No token moves between ranks.  The router stays whole on every
 rank, where ``repro``'s spec shards its experts axis too: its softmax and
 top-k need all E logits, and the replicated product computes the same
 function.  The M link instances are the shards' state machines, ticked on
@@ -64,6 +65,8 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config.base import ArchConfig
 from repro_torch.core import state_machine
 from repro_torch.core.types import DySkewConfig, Policy, link_state_init
+from repro_torch.kernels.combine import ops as combine_ops
+from repro_torch.kernels.combine.ref import moe_combine_ref
 from repro_torch.kernels.dispatch import ops as dispatch_ops
 from repro_torch.kernels.dispatch.ref import dispatch_gather_ref
 from repro_torch.kernels.histogram import ops as histogram_ops
@@ -131,20 +134,23 @@ class SpmdCtx:
 
 @dataclasses.dataclass(frozen=True)
 class DispatchOps:
-    """The three dispatch steps and the Mamba layers' state scan as
-    callables.  The default sends GPU tensors through the CUDA kernels (the
-    scan with its backward kernel under grad); ``PLAIN_OPS`` names the plain
-    PyTorch versions, for holding the kernel path against them on the same
-    device (under grad the plain scan is differentiated by autograd)."""
+    """The three dispatch steps, the Mamba layers' state scan and the MoE
+    combine as callables.  The default sends GPU tensors through the CUDA
+    kernels (the scan and the combine with their backward kernels under
+    grad); ``PLAIN_OPS`` names the plain PyTorch versions, for holding the
+    kernel path against them on the same device (under grad the plain scan
+    and the plain combine loop are differentiated by autograd)."""
 
     gating: Callable = gating_ops.gating            # (logits, k) -> (w, idx)
     histogram: Callable = histogram_ops.histogram   # (ids, E) -> counts
     dispatch: Callable = dispatch_ops.dispatch      # (x, src, valid) -> buf
     scan: Callable = ssd_ops.state_scan             # (states, decay) -> prefix
+    combine: Callable = combine_ops.combine         # (y_flat, slot_tk, gate_w) -> y
 
 
 KERNEL_OPS = DispatchOps()
-PLAIN_OPS = DispatchOps(topk_gating_ref, load_histogram_ref, dispatch_gather_ref, ssd_state_scan_ref)
+PLAIN_OPS = DispatchOps(topk_gating_ref, load_histogram_ref, dispatch_gather_ref, ssd_state_scan_ref,
+                        moe_combine_ref)
 
 
 def moe_dyskew_config(adaptive: bool) -> DySkewConfig:
@@ -414,19 +420,12 @@ def moe_apply(
         contrib = y_local * w_slot[lo:lo + n_local, None].to(x.dtype)
         y = distributed.sum_shards(ScatterByToken.apply(contrib, src_l, valid_l, T), ep)
     else:
-        # ---- Combine (unrolled over k to bound gather temporaries) ----- #
+        # ---- Combine: each token's picks by slot, a rejected pick at the
+        # parked slot n_slots, and the kept picks' outputs summed by weight.
         y_flat = distributed.gather_shards(y_local, ep)    # (n_slots, d)
-        slot_unsorted = torch.empty_like(slot_sorted)
-        slot_unsorted[order] = slot_sorted
-        keep_unsorted = torch.empty_like(keep)
-        keep_unsorted[order] = keep
-        slot_tk = slot_unsorted.reshape(T, k)
-        keep_tk = keep_unsorted.reshape(T, k)
-        y = torch.zeros((T, d), dtype=x.dtype, device=dev)
-        for j in range(k):
-            sj = torch.clamp(slot_tk[:, j], max=n_slots - 1)
-            wj = (gate_w[:, j] * keep_tk[:, j]).to(x.dtype)
-            y = y + y_flat[sj] * wj[:, None]
+        slot_tk = torch.empty_like(slot_sorted)
+        slot_tk[order] = slot_sorted
+        y = ops.combine(y_flat, slot_tk.reshape(T, k), gate_w)
 
     # ---- Telemetry ------------------------------------------------------ #
     if ctx.group is None:

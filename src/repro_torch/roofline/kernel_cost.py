@@ -10,7 +10,8 @@ numbers for the kernels' bounds.  ``dispatch_gather`` is the one kernel
 whose traffic depends on the data (it reads no row for an empty slot, and a
 row once however many slots it feeds): from shapes alone every slot counts
 as filled, ``S·D`` read and ``S·D`` written, plus the index and mask
-bytes."""
+bytes.  The combine's traffic depends on the data too (it reads no row for
+a dropped pick): from shapes alone every pick counts as kept."""
 
 from __future__ import annotations
 
@@ -69,3 +70,23 @@ def ssd_state_scan_bwd(g: torch.Tensor, states_dtype: torch.dtype) -> KernelCost
         "ssd_state_scan_bwd", 4 * live * plane,
         ((C - 1) + live) * plane * 4 + live * H * 4 + C * plane * states_dtype.itemsize + C * H * 4,
     )
+
+
+def moe_combine(y_flat: torch.Tensor, slot_tk: torch.Tensor) -> KernelCost:
+    """Every pick kept: T·k rows of y_flat read and T rows of y written,
+    with each pick's int32 slot and float32 weight; a multiply and an add
+    an element of a pick."""
+    (T, k), d = slot_tk.shape, y_flat.shape[1]
+    row = d * y_flat.element_size()
+    return KernelCost("moe_combine", 2 * T * k * d, T * k * row + T * row + 8 * T * k)
+
+
+def moe_combine_bwd(y_flat: torch.Tensor, slot_tk: torch.Tensor) -> KernelCost:
+    """Every pick kept: dy (T rows) and T·k rows of y_flat read, all S rows
+    of d_y_flat written (a kept pick's scaled dy, or zeros), each pick's
+    slot and weight read and d_w written, and a byte a slot of ownership;
+    d_w's multiply and add and d_y_flat's multiply an element of a pick."""
+    (T, k), (S, d) = slot_tk.shape, y_flat.shape
+    row = d * y_flat.element_size()
+    return KernelCost("moe_combine_bwd", 3 * T * k * d,
+                      T * row + T * k * row + S * row + 12 * T * k + S)

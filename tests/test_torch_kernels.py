@@ -8,6 +8,11 @@ held against these same plain versions on the card by ``chip_smoke.py``.
 What runs here is everything around them: the plain versions, the ``ops``
 switch, the wrappers' argument checks and the launch counters.
 
+The MoE combine has no Pallas kernel: its contract (``combine/ref.py``,
+what the CUDA kernels compute) is held to the plain loop it replaced, the
+forward and the slots' gradient bit for bit in float64 and float32, and
+``combine`` on CPU tensors is that loop, gradients included.
+
 Tolerances: top-k indices EQUAL and weights rtol 1e-5 / atol 1e-6 (those of
 ``tests/test_kernels.py``: float32 softmax sums differ in order);
 histogram EQUAL (integer counts); dispatch EQUAL by value (pure data
@@ -28,6 +33,10 @@ from repro.kernels.histogram.ref import load_histogram_ref as j_hist_ref
 from repro.kernels.topk_gating.kernel import topk_gating as j_gating_kernel
 from repro.kernels.topk_gating.ref import topk_gating_ref as j_gating_ref
 from repro_torch import kernels as tk
+from repro_torch.kernels.combine import kernel as t_combine_kernel
+from repro_torch.kernels.combine import kernel_bwd as t_combine_bwd
+from repro_torch.kernels.combine import ops as t_combine_ops
+from repro_torch.kernels.combine import ref as t_combine_ref
 from repro_torch.kernels.dispatch import kernel as t_dispatch_kernel
 from repro_torch.kernels.dispatch import ops as t_dispatch_ops
 from repro_torch.kernels.dispatch.ref import dispatch_gather_ref as t_dispatch_ref
@@ -203,9 +212,14 @@ class TestWrappers:
         states = torch.zeros(2, 3, 4, 4, requires_grad=True)
         t_ssd_ops.state_scan(states, torch.ones(2, 3)).sum().backward()
         assert states.grad is not None
+        y_flat = torch.zeros(6, 8, requires_grad=True)
+        t_combine_ops.combine(y_flat, torch.tensor([[0, 6], [5, 1]], dtype=torch.int32),
+                              torch.ones(2, 2)).sum().backward()
+        assert y_flat.grad is not None
         assert tk.launch_counts() == {
             "topk_gating": 0, "load_histogram": 0, "dispatch_gather": 0,
             "ssd_state_scan": 0, "ssd_state_scan_bwd": 0,
+            "moe_combine": 0, "moe_combine_bwd": 0,
         }
 
     def test_reset_launch_counts(self):
@@ -229,6 +243,38 @@ class TestWrappers:
                 torch.ones(2, dtype=torch.bool),
             )
 
+    def test_combine_kernels_refuse_cpu_tensors(self):
+        y_flat, slot, w = torch.zeros(6, 8), torch.zeros(2, 2, dtype=torch.int32), torch.ones(2, 2)
+        with pytest.raises(ValueError, match="GPU"):
+            t_combine_kernel.moe_combine(y_flat, slot, w)
+        with pytest.raises(ValueError, match="GPU"):
+            t_combine_bwd.moe_combine_bwd(torch.zeros(2, 8), y_flat, slot, w)
+
+    @pytest.mark.parametrize("bad,error", [
+        (dict(y_flat=torch.zeros(6)), ValueError),
+        (dict(slot=torch.zeros(2, dtype=torch.int32)), ValueError),
+        (dict(w=torch.ones(2, 3)), ValueError),
+        (dict(y_flat=torch.zeros(6, 8, dtype=torch.float16)), TypeError),
+        (dict(slot=torch.zeros(2, 2, dtype=torch.int64)), TypeError),
+        (dict(w=torch.ones(2, 2, dtype=torch.bfloat16)), TypeError),
+        (dict(slot=torch.zeros(2, 33, dtype=torch.int32), w=torch.ones(2, 33)), ValueError),
+        (dict(y_flat=torch.zeros(6, 0)), ValueError),
+        (dict(dy=torch.zeros(3, 8)), ValueError),
+        (dict(dy=torch.zeros(2, 8, dtype=torch.bfloat16)), ValueError),
+    ], ids=["y_flat_1d", "slot_1d", "w_shape", "y_flat_fp16", "slot_int64", "w_bf16", "k33",
+            "empty_rows", "dy_shape", "dy_type"])
+    def test_combine_kernels_check_shapes_and_types(self, bad, error):
+        """Shapes and types are checked before the device, so each is
+        refused here with CPU tensors; dy only by the backward."""
+        args = dict(y_flat=torch.zeros(6, 8), slot=torch.zeros(2, 2, dtype=torch.int32),
+                    w=torch.ones(2, 2), dy=torch.zeros(2, 8))
+        args.update(bad)
+        with pytest.raises(error):
+            t_combine_bwd.moe_combine_bwd(args["dy"], args["y_flat"], args["slot"], args["w"])
+        if "dy" not in bad:
+            with pytest.raises(error):
+                t_combine_kernel.moe_combine(args["y_flat"], args["slot"], args["w"])
+
     def test_loader_is_not_imported_with_the_package(self):
         """Importing the kernels must not build or load anything: the
         loader is imported inside the launch wrappers."""
@@ -248,7 +294,7 @@ class TestWrappers:
     def test_sources_exist_for_every_kernel(self):
         from repro_torch.kernels import _loader
         assert [p.name for p in _loader.sources()] == [
-            "dispatch.cu", "histogram.cu", "ssd_state_scan.cu", "topk_gating.cu",
+            "combine.cu", "dispatch.cu", "histogram.cu", "ssd_state_scan.cu", "topk_gating.cu",
         ]
         for path in _loader.sources():
             text = path.read_text()
@@ -305,6 +351,40 @@ class TestLaunchShapes:
     def test_dispatch_grid_matches_the_source(self):
         assert _csrc_constant("dispatch.cu", "kWarpsPerBlock") == t_dispatch_kernel.WARPS_PER_BLOCK
         assert _csrc_constant("dispatch.cu", "kMinBlocksPerSm") == t_dispatch_kernel.BLOCKS_PER_SM
+
+    @pytest.mark.parametrize("sm_count", [1, 132])
+    @pytest.mark.parametrize("row_bytes", [14, 2048, 4096, 14336])
+    @pytest.mark.parametrize("T", [0, 1, 8, 64, 8192, 65536])
+    def test_combine_launch_shape(self, T, row_bytes, sm_count):
+        """The widest piece (vectors a lane) that still gives every SM
+        ``WARPS_PER_SM`` warps, else one vector a lane."""
+        k = t_combine_kernel
+        u = k.launch_shape(T, row_bytes, sm_count)
+        vecs = -(-row_bytes // 16)
+
+        def warps(width):
+            return T * -(-vecs // (32 * width))
+
+        assert u in (1, 2, 4)
+        if u > 1:
+            assert warps(u) >= sm_count * k.WARPS_PER_SM
+        if u < 4:
+            assert warps(u * 2) < sm_count * k.WARPS_PER_SM
+
+    def test_combine_launch_shape_on_the_main_path(self):
+        """granite's train step and serve prefill take 2 KB pieces, a
+        decode step of 64 tokens the narrowest, on the H100's 132 SMs."""
+        k = t_combine_kernel
+        assert k.launch_shape(8192, 2048, 132) == 4
+        assert k.launch_shape(65536, 2048, 132) == 4
+        assert k.launch_shape(64, 2048, 132) == 1
+        assert k.launch_shape(8192, 14336, 132) == 4
+
+    def test_combine_constants_match_the_source(self):
+        assert _csrc_constant("combine.cu", "kWarpsPerBlock") == t_combine_kernel.WARPS_PER_BLOCK
+        assert _csrc_constant("combine.cu", "kMaxTopK") == t_combine_kernel.MAX_TOP_K
+        assert _csrc_constant("combine.cu", "kZeroRows") == t_combine_bwd.ZERO_ROWS
+        assert _csrc_constant("combine.cu", "kWarp") == t_combine_kernel.WARP
 
     @pytest.mark.parametrize("k", [1, 2, 3, 8, 32])
     @pytest.mark.parametrize("element_size", [2, 4])
@@ -407,3 +487,90 @@ class TestLaunchShapes:
         text = "\n".join(p.read_text() for p in _loader.sources())
         params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text).group(1)
         assert len(params.split(",")) == len(sig)
+
+
+def _combine_inputs(seed, T=12, k=4, S=40, d=24, dtype=torch.float64):
+    """A combine's inputs as a routing plan makes them: every kept pick owns
+    a slot of its own, the rest are dropped (slot S).  Token 0 has all its
+    picks dropped, and slot S - 1 is kept by a pick, so the plain loop's
+    clamp sends every dropped pick onto a row that is also kept."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((T, k)) < 0.6
+    keep[0] = False
+    keep[1, 0] = True
+    n = int(keep.sum())
+    assert n < S
+    slots = rng.permutation(S - 1)[:n - 1]
+    slot = np.full((T, k), S, dtype=np.int32)
+    slot[keep] = np.concatenate([[S - 1], slots])
+    y_flat = torch.from_numpy(rng.standard_normal((S, d))).to(dtype)
+    w = torch.from_numpy(rng.random((T, k))).to(torch.float64 if dtype == torch.float64 else torch.float32)
+    dy = torch.from_numpy(rng.standard_normal((T, d))).to(dtype)
+    return y_flat, torch.from_numpy(slot), w, dy
+
+
+def _loop_grads(y_flat, slot, w, dy):
+    yf, ww = y_flat.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = t_combine_ref.moe_combine_ref(yf, slot, ww)
+    return (y.detach(),) + torch.autograd.grad(y, (yf, ww), dy)
+
+
+class TestCombinePlain:
+    """The kernels' contract (``combine/ref.py``) against the plain loop the
+    port has always run, and the CPU path of ``combine`` against that
+    loop."""
+
+    @pytest.mark.parametrize("seed", range(3))
+    def test_contract_equals_the_loop_in_float64(self, seed):
+        """Forward and the slots' gradient the same bits; the weights'
+        gradient (a dot product, summed in another order) to 1e-12."""
+        y_flat, slot, w, dy = _combine_inputs(seed)
+        y_loop, d_yf_loop, d_w_loop = _loop_grads(y_flat, slot, w, dy)
+        assert torch.equal(t_combine_ref.moe_combine_contract(y_flat, slot, w), y_loop)
+        d_yf, d_w = t_combine_ref.moe_combine_bwd_ref(dy, y_flat, slot, w)
+        assert d_yf.dtype == torch.float64 and d_w.dtype == torch.float64
+        assert torch.equal(d_yf, d_yf_loop)
+        np.testing.assert_allclose(d_w.numpy(), d_w_loop.numpy(), rtol=1e-12, atol=1e-12)
+        kept = slot.numpy() < y_flat.shape[0]
+        assert not kept[0].any() and (d_w[0] == 0).all() and (y_loop[0] == 0).all()
+        # A slot no pick owns gets a zero gradient.
+        owned = np.zeros(y_flat.shape[0], bool)
+        owned[slot.numpy()[kept]] = True
+        assert (d_yf[torch.from_numpy(~owned)] == 0).all()
+
+    @pytest.mark.parametrize("seed", range(3))
+    def test_contract_is_the_loop_in_float32(self, seed):
+        y_flat, slot, w, dy = _combine_inputs(seed, dtype=torch.float32)
+        y_loop, d_yf_loop, d_w_loop = _loop_grads(y_flat, slot, w, dy)
+        assert torch.equal(t_combine_ref.moe_combine_contract(y_flat, slot, w), y_loop)
+        d_yf, d_w = t_combine_ref.moe_combine_bwd_ref(dy, y_flat, slot, w)
+        assert torch.equal(d_yf, d_yf_loop)
+        np.testing.assert_allclose(d_w.numpy(), d_w_loop.numpy(), rtol=1e-5, atol=1e-5)
+
+    def test_contract_rounds_once_in_bfloat16(self):
+        """bfloat16: the sum in float32, rounded once; autograd through the
+        contract gives the slots' gradient the backward formula's bits."""
+        y_flat, slot, w, dy = _combine_inputs(5, dtype=torch.bfloat16)
+        y = t_combine_ref.moe_combine_contract(y_flat, slot, w)
+        assert y.dtype == torch.bfloat16
+        assert torch.equal(y, t_combine_ref.moe_combine_contract(y_flat.float(), slot, w).bfloat16())
+        yf = y_flat.clone().requires_grad_(True)
+        d_yf_auto, = torch.autograd.grad(t_combine_ref.moe_combine_contract(yf, slot, w), (yf,), dy)
+        d_yf, d_w = t_combine_ref.moe_combine_bwd_ref(dy, y_flat, slot, w)
+        assert d_yf.dtype == torch.bfloat16 and d_w.dtype == torch.float32
+        assert torch.equal(d_yf_auto, d_yf)
+        # The loop rounds every product and sum to bfloat16: near, not equal.
+        y_loop = t_combine_ref.moe_combine_ref(y_flat, slot, w)
+        assert float((y.float() - y_loop.float()).abs().max()) <= 2.0 ** -5 * float(y.float().abs().max())
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_cpu_combine_is_the_loop_bit_for_bit(self, dtype):
+        """``combine`` on CPU tensors: the loop's output and, through the
+        ``autograd.Function``, the loop's own gradients, bit for bit."""
+        y_flat, slot, w, dy = _combine_inputs(9, dtype=dtype)
+        y_loop, d_yf_loop, d_w_loop = _loop_grads(y_flat, slot, w, dy)
+        yf, ww = y_flat.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = t_combine_ops.combine(yf, slot, ww)
+        d_yf, d_w = torch.autograd.grad(y, (yf, ww), dy)
+        for got, want in ((y, y_loop), (d_yf, d_yf_loop), (d_w, d_w_loop)):
+            assert got.dtype == want.dtype and torch.equal(got, want)

@@ -171,6 +171,29 @@ def test_plain_ops_give_the_same_as_the_default_on_cpu():
     assert torch.equal(y1, y2) and torch.equal(s1["ema_loads"], s2["ema_loads"])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_default_combine_on_cpu_is_the_loop_bit_for_bit(dtype):
+    """On the CPU the default combine is the plain loop in an
+    ``autograd.Function``: ``moe_apply``'s output and the gradients of ``x``
+    and of every leaf the same bits as the loop differentiated by autograd
+    (``PLAIN_OPS.combine``), under a router that drops picks."""
+    _, tcfg = _cfgs(True, capacity_factor=0.5)
+    p_np = _numpy_params(1.5)
+    x_np = np.random.default_rng(3).standard_normal((B, S, D)).astype(np.float32)
+    dy = torch.from_numpy(np.random.default_rng(4).standard_normal((B, S, D)).astype(np.float32)).to(dtype)
+    ctx = tmoe.SpmdCtx(num_groups=1, num_ep_shards=N_EP)
+    runs = []
+    for ops in (tmoe.KERNEL_OPS, tmoe.DispatchOps(combine=tmoe.PLAIN_OPS.combine)):
+        tp = {k: v.requires_grad_(True) for k, v in params_from_numpy(p_np, device="cpu", dtype=dtype).items()}
+        x = torch.from_numpy(x_np).to(dtype).requires_grad_(True)
+        y, _, m = tmoe.moe_apply(tp, x, cfg=tcfg, state=tmoe.moe_state_init(tcfg, ctx, device="cpu"),
+                                 ctx=ctx, ops=ops)
+        runs.append([y.detach()] + list(torch.autograd.grad(y, [x] + [tp[k] for k in sorted(tp)], dy)))
+        assert float(m["moe_dropped_frac"]) > 0.1
+    for a, b in zip(*runs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_state_is_not_mutated():
     _, tcfg = _cfgs(True)
     tp = params_from_numpy(_numpy_params(0.8), device="cpu")

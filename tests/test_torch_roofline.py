@@ -32,6 +32,7 @@ from repro.train.step import make_prefill_step as j_make_prefill_step
 from repro.train.step import make_train_step as j_make_train_step
 from repro_torch.config.base import ShapeConfig
 from repro_torch.config.base import get_config as t_get_config
+from repro_torch.kernels.combine.ops import combine
 from repro_torch.kernels.dispatch.ops import dispatch
 from repro_torch.kernels.histogram.ops import histogram
 from repro_torch.kernels.ssd_scan.ops import state_scan
@@ -197,16 +198,21 @@ def _kernel_calls(rng):
     valid = torch.from_numpy(rng.random(S) < 0.4)
     states = _cpu(rng, 5, 2, 4, 3)
     decay = torch.from_numpy(rng.random((5, 2)).astype(np.float32))
+    y_flat = _cpu(rng, 2 * S, D)
+    slot = torch.from_numpy(rng.permutation(2 * S + 1)[:T * 2].reshape(T, 2).astype(np.int32))
+    w = torch.from_numpy(rng.random((T, 2)).astype(np.float32))
     return {
         "topk_gating": (lambda: gating(logits, k), kernel_cost.topk_gating(logits, k)),
         "load_histogram": (lambda: histogram(ids, E), kernel_cost.load_histogram(ids, E)),
         "dispatch_gather": (lambda: dispatch(x, src, valid), kernel_cost.dispatch_gather(x, src)),
         "ssd_state_scan": (lambda: state_scan(states, decay), kernel_cost.ssd_state_scan(states)),
+        "moe_combine": (lambda: combine(y_flat, slot, w), kernel_cost.moe_combine(y_flat, slot)),
     }
 
 
 class TestKernelRecords:
-    @pytest.mark.parametrize("name", ["topk_gating", "load_histogram", "dispatch_gather", "ssd_state_scan"])
+    @pytest.mark.parametrize("name", ["topk_gating", "load_histogram", "dispatch_gather", "ssd_state_scan",
+                                      "moe_combine"])
     def test_record_is_the_formula_and_nothing_else(self, name):
         """Each wrapper on CPU tensors (its plain version runs): the counter
         holds the formula's record and counts none of the plain ops."""
@@ -230,6 +236,26 @@ class TestKernelRecords:
         assert got["kernels"] == {
             "ssd_state_scan": {"calls": 1, "flops": fwd.flops, "bytes": fwd.bytes},
             "ssd_state_scan_bwd": {"calls": 1, "flops": bwd.flops, "bytes": bwd.bytes},
+        }
+        assert (got["flops"], got["bytes"]) == (fwd.flops + bwd.flops, fwd.bytes + bwd.bytes)
+
+    def test_combine_backward_record(self):
+        """The combine under grad on CPU tensors (the loop, and its
+        autograd gradient in the backward): one record each way, none of
+        the loop's ops."""
+        rng = np.random.default_rng(5)
+        y_flat = _cpu(rng, 48, 16, grad=True)
+        slot = torch.from_numpy(rng.permutation(49)[:40].reshape(20, 2).astype(np.int32))
+        w = torch.from_numpy(rng.random((20, 2)).astype(np.float32)).requires_grad_(True)
+        g = _cpu(rng, 20, 16)
+        with OpCounter() as c:
+            torch.autograd.grad(combine(y_flat, slot, w), (y_flat, w), g)
+        fwd = kernel_cost.moe_combine(y_flat, slot)
+        bwd = kernel_cost.moe_combine_bwd(y_flat, slot)
+        got = c.result()
+        assert got["kernels"] == {
+            "moe_combine": {"calls": 1, "flops": fwd.flops, "bytes": fwd.bytes},
+            "moe_combine_bwd": {"calls": 1, "flops": bwd.flops, "bytes": bwd.bytes},
         }
         assert (got["flops"], got["bytes"]) == (fwd.flops + bwd.flops, fwd.bytes + bwd.bytes)
 
