@@ -4,10 +4,12 @@ the benchmark's files (the same cells and traffic, configurations cut to a
 size the CPU runs in a second).
 
 The tiny tree also holds two state-space cells given only as data, the
-stand-ins of Mamba-2 cells that wait for the port to take the number of
-B/C groups from its configuration (it derives it from the head count):
-they keep the harness's, the reference's and the readers' state-space path
-under test."""
+stand-ins of the Mamba-2 cells: they keep the harness's, the reference's
+and the readers' state-space path under test.  The harness reads the B/C
+group count from a file's ``mamba.n_groups`` (1 without the key, as
+published); the cells wait only for the port to take it from its
+configuration too (it derives one group to eight heads).  The stand-in's
+file has no ``n_groups`` and 8 heads, so it runs at 1 group either way."""
 
 from __future__ import annotations
 

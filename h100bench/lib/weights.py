@@ -33,7 +33,9 @@ def padded_vocab(model: Dict) -> int:
 
 
 def dims(model: Dict) -> Dict[str, int]:
-    """The widths the layout and the reference use."""
+    """The widths the layout and the reference use.  Mamba-2's B/C group
+    count is the file's ``mamba.n_groups`` (the published ``ngroups``), 1
+    where the file has none, as in the published default."""
     d = model["d_model"]
     out = {"d": d, "L": model["num_layers"], "V": model["vocab_size"], "Vp": padded_vocab(model)}
     if model.get("num_heads", 0):
@@ -46,8 +48,10 @@ def dims(model: Dict) -> Dict[str, int]:
         m = model["mamba"]
         di = m["expand"] * d
         nh = di // m["head_dim"]
-        out.update(di=di, nh=nh, P=m["head_dim"], N=m["d_state"], g=max(nh // 8, 1), w=m["conv_width"],
-                   chunk=m["chunk"])
+        g = m.get("n_groups", 1)
+        if g < 1 or nh % g:
+            raise ValueError(f"mamba.n_groups {g} does not divide the {nh} heads")
+        out.update(di=di, nh=nh, P=m["head_dim"], N=m["d_state"], g=g, w=m["conv_width"], chunk=m["chunk"])
     return out
 
 

@@ -9,8 +9,10 @@ has one, a pre-norm feed-forward, both added to the residual stream:
 - Mamba-2 (arXiv:2405.21060): z, x, B, C and dt from the input, a causal
   depthwise convolution and SiLU on x, B and C, dt = softplus(dt + bias),
   A = -exp(A_log), the state-space dual over chunks (written here in the
-  paper's own minimal chunked form), D skip, gated by SiLU(z), RMS-normed,
-  projected out; one step of the recurrence when decoding;
+  paper's own minimal chunked form), D skip, gated by SiLU(z), RMS-normed
+  over each B/C group's share of the inner width (the published gated
+  norm's ``group_size``), projected out; one step of the recurrence when
+  decoding;
 - top-k MoE: softmax router in float32, the k most probable experts (ties
   to the lower id), their weights renormalised, each expert a SwiGLU, picks
   over an expert's capacity dropped (``link``).
@@ -166,7 +168,9 @@ class Decoder:
         return z, xp, Bp, Cp, dt
 
     def _mamba_out(self, l: int, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        y = rmsnorm(y * F.silu(z), self.w("mamba/norm_scale", l))
+        g = self.w("mamba/w_B", l).shape[1]
+        scale = self.w("mamba/norm_scale", l).unflatten(-1, (g, -1))
+        y = rmsnorm((y * F.silu(z)).unflatten(-1, (g, -1)), scale).flatten(-2)
         return self.prec.einsum("bse,ed->bsd", y, self.w("mamba/w_out", l))
 
     def mamba_full(self, l: int, h: torch.Tensor, want_state: bool = False):
