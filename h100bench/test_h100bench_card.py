@@ -1,5 +1,6 @@
-"""On the card: every cell's tiny stand-in, and each state-space stand-in,
-runs through the CUDA kernels, correct, and its traced run reads every per-layer metric from the device.
+"""On the card: every cell's tiny stand-in, and each state-space stand-in
+that BENCHMARK.json has no real cell for, runs through the CUDA kernels,
+correct, and its traced run reads every per-layer metric from the device.
 
     PYTHONPATH=src python -m pytest -q -m h100 h100bench
 
@@ -12,14 +13,14 @@ import time
 
 import pytest
 
-from h100bench.conftest import REPO, SSM_CELLS
+from h100bench.conftest import REPO, tiny_cells
 from h100bench.run import run_cell
 
 BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
 
 
 @pytest.mark.h100
-@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]] + list(SSM_CELLS))
+@pytest.mark.parametrize("cell", tiny_cells(BENCH))
 def test_cell_on_the_card(tiny_root, cuda_device, cell):
     result, _ = run_cell(cell, 2**31 + 99, 1.0, True, device=cuda_device, root=tiny_root,
                          started=time.perf_counter())

@@ -12,13 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from h100bench.conftest import REPO, SSM_CELLS
+from h100bench.conftest import REPO, tiny_cells
 from h100bench.lib import cell as cellmod
 from h100bench.lib import traffic, weights
 from h100bench.run import run_cell
 
 BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
-CELLS = [w["name"] for w in BENCH["workloads"]] + list(SSM_CELLS)
+CELLS = tiny_cells(BENCH)
 SEED = 2**31 + 12345
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
