@@ -1293,8 +1293,8 @@ def served_model(torch, arch, layers=None, prompt=PREFILL_LEN, ctx=None):
     return model, ctx, params, inputs, make_prefill_step(model, ctx), make_decode_step(model, ctx)
 
 
-def expected_launches(cfg):
-    """Launches of each kernel in one prefill and DECODE_STEPS decode steps:
+def expected_launches(cfg, steps=DECODE_STEPS):
+    """Launches of each kernel in one prefill and ``steps`` decode steps:
     the MoE kernels (the combine among them) once per MoE layer and step,
     the scan once per Mamba layer and prefill (decode is the recurrent
     update, with no scan); no backward."""
@@ -1303,9 +1303,19 @@ def expected_launches(cfg):
     nb = transformer.num_blocks(cfg)
     n_moe = len(transformer.moe_layer_positions(cfg)) * nb
     n_mamba = len(transformer.mamba_layer_positions(cfg)) * nb
-    moe = n_moe * (1 + DECODE_STEPS)
+    moe = n_moe * (1 + steps)
     return {"topk_gating": moe, "load_histogram": moe, "dispatch_gather": moe,
             "ssd_state_scan": n_mamba, "ssd_state_scan_bwd": 0, "moe_combine": moe, "moe_combine_bwd": 0}
+
+
+def host_steps(before):
+    """The decode steps the host ran since ``before``, a copy of
+    ``decode_graph.counts``: eager steps and captures.  A graph's replay
+    calls no kernel wrapper, so the wrappers count these steps' launches
+    alone."""
+    from repro_torch.train import decode_graph
+
+    return sum(decode_graph.counts[k] - before[k] for k in ("decode_eager_steps", "decode_graph_captures"))
 
 
 def serve_pass(torch, served, forced=None):
@@ -1332,30 +1342,46 @@ def serve_pass(torch, served, forced=None):
 
 
 def phase_serve(torch, served):
-    """An uncounted and a counted serve pass; returns (launch counts, the
-    row to emit, the counted pass)."""
+    """An uncounted, a timed and a traced serve pass; returns (the kernels
+    the traced pass ran, by their device records, the row to emit, the
+    timed pass).  The timed pass's kernel wrappers count the host's calls:
+    the prefill's and those of the decode steps the host ran, a graph's
+    eager step and its capture; a replay runs its kernels with no call, so
+    what ran is read from the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch import kernels
     from repro_torch.models import transformer
     from repro_torch.models.layers.moe import capacities
+    from repro_torch.train import decode_graph
 
     model, ctx, params, inputs, _, _ = served
     cfg = model.cfg
     B, prompt = inputs["tokens"].shape
 
     # A first, uncounted pass pays the one-off costs (library handles, the
-    # allocator's first blocks), so that the counted pass is a steady one.
+    # allocator's first blocks, the decode graph's capture), so that the
+    # timed pass is a steady one.
     serve_pass(torch, served)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    before = dict(decode_graph.counts)
     run = serve_pass(torch, served)
-    counts = kernels.launch_counts()
+    calls = kernels.launch_counts()
+    ran_on_host = host_steps(before)
     peak = torch.cuda.max_memory_allocated()
     state, all_logits, toks, prefill_s, decode_s = run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        serve_pass(torch, served)
+    counts = kernels.launches_in_trace(prof)
+    del prof
 
-    want = expected_launches(cfg)
+    want, on_host = expected_launches(cfg), expected_launches(cfg, ran_on_host)
     check(set(counts) == set(want), f"serve: kernels {sorted(counts)}")
     for name, n in counts.items():
-        check(n == want[name], f"serve {cfg.name}: {name} launched {n} times, expected {want[name]}")
+        check(n == want[name], f"serve {cfg.name}: {name} ran {n} times, expected {want[name]}")
+        check(calls[name] == on_host[name], f"serve {cfg.name}: {name} called {calls[name]} times with "
+              f"{ran_on_host} decode steps on the host, expected {on_host[name]}")
     check(int(state["pos"]) == prompt + DECODE_STEPS, "serve: pos")
     stacked = torch.cat(all_logits, dim=1).float()
     check(stacked.shape == (B, 1 + DECODE_STEPS, cfg.padded_vocab), "serve: logits shape")
@@ -1376,7 +1402,8 @@ def phase_serve(torch, served):
         "decode_steps": DECODE_STEPS, "decode_s": decode_s,
         "decode_tokens_per_s": B * DECODE_STEPS / decode_s,
         "decode_ms_per_step": decode_s / DECODE_STEPS * 1e3,
-        "peak_memory_bytes": peak, "launches": counts, "distinct_decode_steps": distinct,
+        "peak_memory_bytes": peak, "launches": counts, "wrapper_calls": calls,
+        "host_decode_steps": ran_on_host, "distinct_decode_steps": distinct,
     }
     if cfg.moe is not None:
         # Link telemetry: Model.prefill drops the new link states, so one
@@ -4150,6 +4177,7 @@ def ep_one_rank(torch, card, nccl_train):
     from repro_torch.models import transformer
     from repro_torch.models.layers.moe import SpmdCtx
     from repro_torch.models.perf_flags import PerfFlags, use_flags
+    from repro_torch.train import decode_graph
     from repro_torch.train.step import make_decode_step, make_prefill_step
 
     counts = {}
@@ -4169,9 +4197,13 @@ def ep_one_rank(torch, card, nccl_train):
                 with use_flags(PerfFlags(moe_scatter_combine=scatter)):
                     for kind, s in runs.items():
                         kernels.reset_launch_counts()
+                        before = dict(decode_graph.counts)
                         _, logits, toks, prefill_s, decode_s = serve_pass(torch, s)
-                        launches = kernels.launch_counts()
-                        moe_counts_are(launches, n_moe_layers(model.cfg) * (1 + DECODE_STEPS),
+                        launches, ran_on_host = kernels.launch_counts(), host_steps(before)
+                        # A grouped step runs eagerly; the one alone is a
+                        # graph, its replays checked by its logits.
+                        check(kind == "alone" or ran_on_host == DECODE_STEPS, f"{where} {name}: a grouped step replayed")
+                        moe_counts_are(launches, n_moe_layers(model.cfg) * (1 + ran_on_host),
                                        f"{where} {name} {kind}")
                         if kind == "group":
                             counts = {k: counts.get(k, 0) + v for k, v in launches.items()}
@@ -4763,6 +4795,7 @@ def fsdp_one_rank(torch, card):
     from repro_torch.checkpoint.manager import flatten_with_paths
     from repro_torch.launch.mesh import init_ranks, mesh_ctx
     from repro_torch.models.layers.moe import SpmdCtx
+    from repro_torch.train import decode_graph
     from repro_torch.train.step import make_decode_step, make_prefill_step
 
     where = "fsdp (a)"
@@ -4779,9 +4812,13 @@ def fsdp_one_rank(torch, card):
                 for kind, s in (("group", served), ("alone", (model, alone, params, inputs, make_prefill_step(model, alone),
                                                               make_decode_step(model, alone)))):
                     kernels.reset_launch_counts()
+                    before = dict(decode_graph.counts)
                     _, logits, toks, prefill_s, decode_s = serve_pass(torch, s)
-                    launches = kernels.launch_counts()
-                    moe_counts_are(launches, n_moe_layers(model.cfg) * (1 + DECODE_STEPS), f"{where} {kind}")
+                    launches, ran_on_host = kernels.launch_counts(), host_steps(before)
+                    # As in ``ep_one_rank``: the grouped step eager, the
+                    # one alone a graph.
+                    check(kind == "alone" or ran_on_host == DECODE_STEPS, f"{where}: a grouped step replayed")
+                    moe_counts_are(launches, n_moe_layers(model.cfg) * (1 + ran_on_host), f"{where} {kind}")
                     if kind == "group":
                         counts = dict(launches)
                     got[kind] = (logits, toks, prefill_s, decode_s)
@@ -5025,11 +5062,13 @@ def count_step(torch, name, fn, args, model_flops, seconds):
 
 def roofline_serve(torch, arch):
     """Prefill 8 x 1024 and one decode step of ``arch`` at full width, each
-    timed and then counted on the card and on ``meta``."""
+    timed and then counted on the card and on ``meta``.  The decode step is
+    timed as served, a CUDA graph's replay, and counted through the eager
+    step it replays: a replay runs no op that the counter sees."""
     from repro_torch.roofline.analysis import model_flops_estimate
 
     served = served_model(torch, arch)
-    model, _, params, inputs, prefill, decode = served
+    model, ctx, params, inputs, prefill, decode = served
     cfg = model.cfg
     B, prompt = inputs["tokens"].shape
     n = cfg.active_param_count()
@@ -5048,8 +5087,8 @@ def roofline_serve(torch, arch):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    rows.append(count_step(torch, f"{arch} decode step", decode, (params, state, tok),
-                           model_flops_estimate(n, B, "decode"), statistics.median(times)))
+    rows.append(count_step(torch, f"{arch} decode step", lambda p, s, t: model.decode_step(p, s, t, ctx=ctx),
+                           (params, state, tok), model_flops_estimate(n, B, "decode"), statistics.median(times)))
     del served, params, fresh, state, logits
     torch.cuda.empty_cache()
     return rows

@@ -40,11 +40,41 @@ _MODULES = {
 }
 
 
+#: The device kernels each wrapper launches, as the profiler names them:
+#: each launch leaves one record of one of them.
+DEVICE_KERNELS = {
+    "topk_gating": ("topk_gating_group_kernel", "topk_gating_warp_kernel"),
+    "load_histogram": ("histogram_block_kernel", "histogram_cluster_kernel"),
+    "dispatch_gather": ("dispatch_gather_kernel", "dispatch_bytes_kernel"),
+    "ssd_state_scan": ("ssd_scan_vec_kernel", "ssd_scan_scalar_kernel"),
+    "ssd_state_scan_bwd": ("ssd_scan_bwd_kernel",),
+    "moe_combine": ("moe_combine_fwd_kernel",),
+    "moe_combine_bwd": ("moe_combine_bwd_kernel",),
+}
+
+
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches made by each wrapper since the last reset."""
+    """Kernel launches made by each wrapper since the last reset: the
+    wrappers' calls.  A CUDA graph's replay calls none; the kernels it runs
+    are counted by ``launches_in_trace``."""
     return {name: mod.launches for name, mod in _MODULES.items()}
 
 
 def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
+
+
+def launches_in_trace(prof) -> Dict[str, int]:
+    """The launches of each wrapper's kernels among the device records of a
+    finished ``torch.profiler.profile``: the kernels that ran, a CUDA
+    graph's replays included."""
+    from torch.autograd import DeviceType
+
+    out = dict.fromkeys(_MODULES, 0)
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            for name, device_names in DEVICE_KERNELS.items():
+                if any(k in evt.key for k in device_names):
+                    out[name] += evt.count
+    return out

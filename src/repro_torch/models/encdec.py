@@ -45,9 +45,9 @@ from repro_torch.models.transformer import (
     _stack_specs,
     _take_block,
     _unbind_blocks,
-    decode_position,
     kv_heads_held,
     model_dtype,
+    step_positions,
     vocab_group,
 )
 
@@ -165,8 +165,12 @@ def forward(
     B, S = tokens.shape
     dtype = model_dtype(cfg)
     dev = tokens.device
-    start = decode_position(decode_state) if decode_state is not None else 0
-    positions = start + torch.arange(S, dtype=torch.int32, device=dev)
+    if decode_state is not None and S == 1:
+        start, positions = step_positions(decode_state, dev)
+    else:
+        # Prefill is always from position 0 (single-shot prompt ingestion).
+        start = 0
+        positions = torch.arange(S, dtype=torch.int32, device=dev)
     group = ctx.ep_group
     vocab = vocab_group(params, cfg, ctx)
     plan = fsdp.plan(model_specs(cfg), ctx)

@@ -164,7 +164,7 @@ def decode_attention(
     q: torch.Tensor,             # (B, 1, K, G, hd)
     k_cache: torch.Tensor,       # (B, S, K, hd) — model dtype or int8
     v_cache: torch.Tensor,
-    kv_len: int,                 # valid cache length (inclusive)
+    kv_len,                      # valid cache length: an int, or a (1,) tensor
     k_scale: Optional[torch.Tensor] = None,   # (B, S, K) for int8 caches
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -195,7 +195,7 @@ def attention_apply(
     positions: torch.Tensor,     # (S,) or (B, S)
     causal: bool = True,
     cache: Optional[Dict] = None,  # {'k','v'[,'k_scale','v_scale']}
-    cache_index: Optional[int] = None,              # write offset
+    cache_index=None,            # write offset: an int, or a one-token step's (1,) int64 position
     kv: Optional[torch.Tensor] = None,  # cross-attention source (B, Skv, d)
     q_chunk: int = 512,
     group: distributed.Group = None,    # the model group
@@ -205,7 +205,11 @@ def attention_apply(
 
     MUTATES ``cache``: the fresh keys and values (int8 values and float32
     scales where the cache holds ``k_scale``) are written in place at
-    ``cache_index``, and the returned cache holds the same tensors.  The
+    ``cache_index``, and the returned cache holds the same tensors.  An int
+    offset is a slice bound; a one-token step's position may instead be a
+    (1,) int64 tensor on the cache's device, written by ``index_copy_``
+    with the same bits, so that no host reads it and the step can be
+    captured in a CUDA graph (``train/decode_graph.py``).  The
     query attends to every key written up to the end of this write: for a
     cross-attention cache that is all of ``kv``, whatever the query length
     (``repro`` attends to the first S positions only, S the query length,
@@ -241,19 +245,28 @@ def attention_apply(
     new_cache = None
     if cache is not None:
         idx = cache_index if cache_index is not None else 0
-        end = idx + k.shape[1]
+        if torch.is_tensor(idx):
+            end = idx + 1
+
+            def put(name: str, val: torch.Tensor) -> None:
+                cache[name].index_copy_(1, idx, val)
+        else:
+            end = idx + k.shape[1]
+
+            def put(name: str, val: torch.Tensor) -> None:
+                cache[name][:, idx:end] = val
         k_scale = v_scale = None
         if "k_scale" in cache:
             kq, k_scale_new = quantize_kv(k)
             vq, v_scale_new = quantize_kv(v)
-            cache["k"][:, idx:end] = kq
-            cache["v"][:, idx:end] = vq
-            cache["k_scale"][:, idx:end] = k_scale_new
-            cache["v_scale"][:, idx:end] = v_scale_new
+            put("k", kq)
+            put("v", vq)
+            put("k_scale", k_scale_new)
+            put("v_scale", v_scale_new)
             k_scale, v_scale = cache["k_scale"], cache["v_scale"]
         else:
-            cache["k"][:, idx:end] = k
-            cache["v"][:, idx:end] = v
+            put("k", k)
+            put("v", v)
         new_cache = dict(cache)
         k_cache, v_cache = cache["k"], cache["v"]
         if S == 1:

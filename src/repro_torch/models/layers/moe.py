@@ -267,8 +267,10 @@ def dispatch_plan(
     tok_sorted = (order // top_k).to(torch.int32)
     src = torch.zeros(n_slots + 1, dtype=torch.int32, device=dev)
     src[slot_sorted] = tok_sorted
-    filled = torch.zeros(n_slots + 1, dtype=torch.bool, device=dev)
-    filled[slot_sorted] = True
+    # ``index_fill_`` takes its value as a kernel argument, where an
+    # assigned number would be a host tensor copied to the device, which a
+    # CUDA graph cannot capture.
+    filled = torch.zeros(n_slots + 1, dtype=torch.bool, device=dev).index_fill_(0, slot_sorted, True)
     return order, slot_sorted, keep, src[:n_slots], filled[:n_slots]
 
 

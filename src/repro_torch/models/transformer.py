@@ -213,15 +213,14 @@ def decode_state_init(
     return out
 
 
-def decode_position(decode_state: Dict) -> int:
-    """The next position as a Python int: one host read of the counter a
-    decode step, since the cache writes need it as a slice bound.  A
-    ``meta`` counter has no value.  The dry-run stands for every position,
-    as the reference's traced ``pos`` does, and a step's work does not
-    depend on it (a step attends over the whole cache, masked), so it takes
-    position 0."""
-    pos = decode_state["pos"]
-    return 0 if pos.is_meta else int(pos)
+def step_positions(decode_state: Dict, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A one-token decode step's (cache index, positions): the counter plus
+    ``arange(1)`` on the device, (1,) int64 for the caches' ``index_copy_``
+    and (1,) int32 for RoPE and the sinusoids.  Nothing waits for the
+    device, so the step can be captured in a CUDA graph; a ``meta`` counter
+    stands for every position, as the reference's traced ``pos`` does."""
+    positions = decode_state["pos"] + torch.arange(1, dtype=torch.int32, device=device)
+    return positions.to(torch.int64), positions
 
 
 # ------------------------------------------------------------------ #
@@ -244,7 +243,7 @@ def _apply_layer(
     ctx: SpmdCtx,
     positions: torch.Tensor,
     cache: Optional[Dict],
-    cache_index: Optional[int],
+    cache_index,
     moe_state: Optional[Dict],
     metrics: Dict,
     ops: DispatchOps = KERNEL_OPS,
@@ -362,15 +361,12 @@ def forward(
             )
         x = torch.cat([prefix_embeds.to(dtype), x[:, P:]], dim=1)
 
-    if decode_state is not None:
-        if S > 1:
-            # Prefill is always from position 0 (single-shot prompt
-            # ingestion).
-            start = 0
-        else:
-            start = decode_position(decode_state)
-        cache_index: Optional[int] = start
-        positions = start + torch.arange(S, dtype=torch.int32, device=dev)
+    if decode_state is not None and S == 1:
+        cache_index, positions = step_positions(decode_state, dev)
+    elif decode_state is not None:
+        # Prefill is always from position 0 (single-shot prompt ingestion).
+        cache_index = 0
+        positions = torch.arange(S, dtype=torch.int32, device=dev)
     else:
         positions = torch.arange(S, dtype=torch.int32, device=dev)
         cache_index = None

@@ -29,7 +29,9 @@ profiled step, whose backward then runs on another thread than it would
 unprofiled; a reader that keeps every thread's records has no need of it.
 
 ``counters()`` reads the seconds this process's kernel build took (the
-kernel wrappers' launches stay with ``kernels.launch_counts()``).
+kernel wrappers' launches stay with ``kernels.launch_counts()``) and the
+decode steps of ``make_decode_step`` by how they ran: captured into a CUDA
+graph, replayed, or eager (``train/decode_graph.py``).
 """
 
 from __future__ import annotations
@@ -61,7 +63,10 @@ def calling_thread():
 
 def counters() -> Dict[str, Any]:
     """``kernel_build_s``: the seconds this process's kernel build took,
-    None where it built nothing."""
+    None where it built nothing; ``decode_graph_captures``,
+    ``decode_graph_replays``, ``decode_eager_steps``: this process's decode
+    steps by how they ran."""
     from repro_torch.kernels import _loader
+    from repro_torch.train import decode_graph
 
-    return {"kernel_build_s": _loader.last_build_seconds or None}
+    return {"kernel_build_s": _loader.last_build_seconds or None, **decode_graph.counts}

@@ -46,6 +46,7 @@ from repro_torch.models.perf_flags import get_flags
 from repro_torch.optim.grad_compress import allreduce_compressed, residual_init
 from repro_torch.optim.optimizers import OptimizerConfig, Shards, opt_init, opt_update, zip_map
 from repro_torch.optim.specs import opt_state_slices, opt_state_specs
+from repro_torch.train import decode_graph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,8 +275,11 @@ def make_prefill_step(model: Model, ctx: SpmdCtx = SpmdCtx()):
 
 
 def make_decode_step(model: Model, ctx: SpmdCtx = SpmdCtx()):
-    def decode_step(params, state, token):
-        logits, new_state = model.decode_step(params, state, token, ctx=ctx)
-        return logits, new_state
+    """decode_step(params, state, token) -> (logits (B, 1, V), new state).
+    On a CUDA device with no process group in ``ctx`` the step is captured
+    once into a CUDA graph and replayed (``decode_graph``)."""
 
-    return decode_step
+    def decode_step(params, state, token):
+        return model.decode_step(params, state, token, ctx=ctx)
+
+    return decode_graph.graphed(decode_step, ctx)

@@ -104,8 +104,10 @@ def test_a_backward_runs_on_the_calling_thread_only_while_profiled():
 
 def test_counters_read_the_existing_instruments(monkeypatch):
     # The kernel wrappers' launches keep their one read path,
-    # ``kernels.launch_counts()``.
-    assert set(tracing.counters()) == {"kernel_build_s"}
+    # ``kernels.launch_counts()``; the decode steps are counted by how they
+    # ran.
+    assert set(tracing.counters()) == {"kernel_build_s", "decode_graph_captures", "decode_graph_replays",
+                                       "decode_eager_steps"}
     monkeypatch.setattr(_loader, "last_build_seconds", 0.0)
     assert tracing.counters()["kernel_build_s"] is None
     monkeypatch.setattr(_loader, "last_build_seconds", 7.25)
