@@ -61,7 +61,7 @@ through ``launch/train.py``'s path on a real NCCL group of one rank, the
 same bits as no group; four ranks sharing the card over gloo (gloo stages
 each all_reduce through the host: not NCCL's times), granite at full width
 with 6 of its 24 layers in float32, plain and compressed reduction, held to
-the one-process run at num_groups 4, link states the same bits on every
+the one-process run at num_groups 4, ``ema_loads`` the same bits on every
 rank (over NCCL too, a card a rank, where the machine has four cards); and
 the collectives each step issued, as the op counter records them, with the
 data-parallel step's ``t_collective``.
@@ -95,7 +95,7 @@ of its 24 layers (each rank its 2 prompts, 8 decode steps) and trained at
 FSDP_LAYERS, then as (data 2, model 2), granite trained (and with H2: the
 gathers at half the bytes) and mamba2-1.3b served at 24 of its 48 layers, each held to one process (every layer from
 one process's input within LAYER_TOL, loss and ``grad_norm`` within 1e-3,
-link states the same bits, each parameter within 2 · lr) and each step's
+``ema_loads`` within EMA_PICK_SHARE's bound, each parameter within 2 · lr) and each step's
 gathers and reduce-scatters held to what it issues (``fsdp_issued``).
 
 Last, ``roofline`` runs the dry-run (``launch/dryrun.py``: every cell of
@@ -1101,9 +1101,9 @@ class Recorder:
         return call
 
 
-def compare_dispatch(torch, kern, plain, link_k, link_p, metrics_k, metrics_p, where):
+def compare_dispatch(torch, kern, plain, ema_k, ema_p, metrics_k, metrics_p, where):
     """The two Recorders' last dispatch, step by step, and what it left:
-    picks, counts, the plan, the buffer, the link states and the routing
+    picks, counts, the plan, the buffer, ``ema_loads`` and the routing
     metrics equal."""
     check(torch.equal(kern.last["gating"][1][1], plain.last["gating"][1][1]), f"{where}: picks")
     check(torch.equal(kern.last["histogram"][1], plain.last["histogram"][1]), f"{where}: counts")
@@ -1114,8 +1114,7 @@ def compare_dispatch(torch, kern, plain, link_k, link_p, metrics_k, metrics_p, w
     check(torch.equal(valid_k, valid_p), f"{where}: keep")
     check(torch.equal(src_k[valid_k], src_p[valid_p]), f"{where}: slots")
     check(torch.equal(buf_k, buf_p), f"{where}: buffer")
-    for key in ("state", "strikes", "transitions", "tick"):
-        check(torch.equal(link_k[key], link_p[key]), f"{where}: link {key}")
+    check(torch.equal(ema_k, ema_p), f"{where}: ema_loads")
     for key in ("moe_dropped_frac", "moe_distribute_frac", "moe_shard_imbalance"):
         check(float(metrics_k[key]) == float(metrics_p[key]), f"{where}: {key}")
 
@@ -1152,8 +1151,8 @@ def phase_moe(torch):
             # and the plain one can order two picks differently.
             p["router"] = torch.round((p["router"] + bias[None, :] * 0.5) * 1024) / 1024
             kern, plain = Recorder(moe.KERNEL_OPS), Recorder(moe.PLAIN_OPS)
-            st_k = moe.moe_state_init(cfg, ctx)
-            st_p = moe.moe_state_init(cfg, ctx)
+            st_k = moe.moe_state_init(cfg)
+            st_p = moe.moe_state_init(cfg)
             dropped, distribute = [], []
             for step in range(steps):
                 x = torch.randn((B, S, d), generator=gen, device="cuda")
@@ -1162,10 +1161,7 @@ def phase_moe(torch):
                 y_p, st_p, m_p = moe.moe_apply(p, x, cfg=cfg, state=st_p, ctx=ctx, ops=plain.ops)
                 torch.cuda.synchronize()
                 where = f"moe alpha={alpha} {mode} step {step}"
-                compare_dispatch(torch, kern, plain, st_k["link"], st_p["link"], m_k, m_p, where)
-                for key, v in st_k["link"]["metrics"].items():
-                    check(torch.equal(v, st_p["link"]["metrics"][key]), f"{where}: link metric {key}")
-                check(torch.equal(st_k["ema_loads"], st_p["ema_loads"]), f"{where}: ema_loads")
+                compare_dispatch(torch, kern, plain, st_k["ema_loads"], st_p["ema_loads"], m_k, m_p, where)
                 # Same picks, same buffer: y differs only through the
                 # renormalised weights' last bits (rtol 1e-5 / atol 1e-6 there).
                 check(torch.allclose(y_k, y_p, rtol=1e-4, atol=1e-5), f"{where}: y")
@@ -1406,14 +1402,12 @@ def phase_serve(torch, served):
         "host_decode_steps": ran_on_host, "distinct_decode_steps": distinct,
     }
     if cfg.moe is not None:
-        # Link telemetry: Model.prefill drops the new link states, so one
-        # more forward with carried state reads them (after the counts were
+        # Routing telemetry: Model.prefill drops the metrics, so one more
+        # forward with carried state reads them (after the counts were
         # taken).
         _, aux = transformer.forward(params, inputs["tokens"], cfg=cfg, ctx=ctx, dyskew=model.dyskew_init(ctx))
         metrics = {k: float(v) for k, v in aux["metrics"].items()}
         check(all(v == v for v in metrics.values()), "serve: a metric is NaN")
-        link = aux["dyskew"]["l0"]["link"]
-        check(link["tick"].tolist() == [1] * transformer.num_blocks(cfg), "serve: link tick")
         row.update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k, ep_shards=ctx.num_ep_shards,
                    prefill_c_buf=capacities(cfg, B * prompt)[1], decode_c_buf=capacities(cfg, B)[1],
                    moe_dropped_frac=metrics["moe_dropped_frac"],
@@ -1714,8 +1708,8 @@ def int8_cache_check(torch, served, run):
 
 def moe_path_check(torch, served):
     """One forward of the prompt through the kernels and through the plain
-    versions, with the same carried link state, as the moe phase does for
-    granite: router logits, picks, counts, plan, buffer, link states and
+    versions, with the same carried ``ema_loads``, as the moe phase does for
+    granite: router logits, picks, counts, plan, buffer, ``ema_loads`` and
     metrics equal, gate weights at the gating check's band.  Then the MoE
     layer on the hidden state it was given, through the kernels and through
     the plain versions with the combine's contract (``combine/ref.py``, the
@@ -1744,7 +1738,7 @@ def moe_path_check(torch, served):
     (router_p, _), (w_p, _) = plain.last["gating"]
     check(torch.equal(router_k, router_p), f"{where}: router logits")
     check(torch.allclose(w_k, w_p, rtol=1e-5, atol=1e-6), f"{where}: gate weights")
-    compare_dispatch(torch, kern, plain, aux_k["dyskew"]["l0"]["link"], aux_p["dyskew"]["l0"]["link"],
+    compare_dispatch(torch, kern, plain, aux_k["dyskew"]["l0"]["ema_loads"], aux_p["dyskew"]["l0"]["ema_loads"],
                      aux_k["metrics"], aux_p["metrics"], where)
     (x_k, _, valid_k), _ = kern.last["dispatch"]
     logit_gap = float((logits_k.float() - logits_p.float()).abs().max())
@@ -2814,12 +2808,20 @@ def phase_train(torch, card="cuda", profile=False):
                moe_distribute_frac=[h["moe_distribute_frac"] for h in hist])
     state = out["state"]
     check(int(state["step"]) == TRAIN_STEPS, "train: step counter")
-    check(state["dyskew"]["l0"]["link"]["tick"].tolist() == [TRAIN_STEPS] * transformer.num_blocks(cfg),
-          "train: the links tick once a step")
+    # The EMA of the loads moved off its uniform start in every block, and
+    # still sums to one (each step adds 0.1 x shares that sum to one).
+    E = cfg.moe.num_experts
+    for key, ema in state["dyskew"].items():
+        check(sorted(ema) == ["ema_loads"], f"train: dyskew {key} carries {sorted(ema)}")
+        moved = (ema["ema_loads"] - 1.0 / E).abs().amax(dim=-1)
+        check(bool((moved > 0).all()), f"train: dyskew {key} ema_loads still uniform in a block: {moved.tolist()}")
+        sums = ema["ema_loads"].sum(dim=-1)
+        check(bool(((sums - 1.0).abs() <= 1e-5).all()), f"train: dyskew {key} ema_loads sum to {sums.tolist()}")
+        row.setdefault("ema_loads_max_move", {})[key] = float(moved.max())
 
     # ---- checkpoint round trip on the card ---------------------------- #
     # The whole train state: parameters (bf16, stored as raw bits), the
-    # float32 AdamW moments, link states and the step counter.
+    # float32 AdamW moments, ``ema_loads`` and the step counter.
     where = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_ckpt_")
     try:
         mgr = CheckpointManager(where)
@@ -3066,8 +3068,8 @@ REDUCED_LOSS_RTOL = 1e-5
 def reduced_loop_card_host(torch, cfg, card):
     """TRAIN_STEPS float32 steps of ``cfg`` reduced (its own optimizer) on
     the card and on the host, 8 x 128 tokens a step: the losses within
-    REDUCED_LOSS_RTOL and, with MoE layers, the routing shares and link
-    states equal."""
+    REDUCED_LOSS_RTOL and, with MoE layers, the routing shares and the
+    carried ``ema_loads`` equal."""
     import dataclasses
 
     from repro_torch.optim.optimizers import OptimizerConfig
@@ -3090,12 +3092,14 @@ def reduced_loop_card_host(torch, cfg, card):
         h_card, h_host = ([h["moe_distribute_frac"] for h in runs[dev]["history"]] for dev in (card, HOST))
         s_card, s_host = runs[card]["state"]["dyskew"], runs[HOST]["state"]["dyskew"]
         check(h_card == h_host, f"train {small.name} reduced: moe_distribute_frac {h_card} against {h_host}")
-        for key, a, b in tree_pairs(s_card, s_host):
-            if "/link/" in f"/{key}/":
-                check(torch.equal(a.cpu(), b), f"train {small.name} reduced: dyskew {key}")
-        row.update(experts=small.moe.num_experts, moe_distribute_frac=h_card, link_states_equal=True,
-                   ema_loads_max_abs_diff=max(float((a.cpu() - b).abs().max()) for key, a, b
-                                              in tree_pairs(s_card, s_host) if key.endswith("ema_loads")))
+        # The loads are whole numbers, the same picks on both sides, and the
+        # EMA one elementwise float32 op at a time: the same bits.
+        pairs = [(key, a.cpu(), b) for key, a, b in tree_pairs(s_card, s_host) if key.endswith("ema_loads")]
+        check(len(pairs) > 0, f"train {small.name} reduced: no ema_loads carried")
+        for key, a, b in pairs:
+            check(torch.equal(a, b), f"train {small.name} reduced: dyskew {key}")
+        row.update(experts=small.moe.num_experts, moe_distribute_frac=h_card, ema_loads_equal=True,
+                   ema_loads_max_abs_diff=max(float((a - b).abs().max()) for _, a, b in pairs))
     return row
 
 
@@ -3130,7 +3134,7 @@ RANKS_TIMEOUT_S = 420
 #: pick may flip, moving one token's output; each rank's gradient is its
 #: share, summed over the ranks in float32.  Losses and ``grad_norm`` within
 #: rtol 1e-3 (summing nothing, or to the wrong scale, moves ``grad_norm`` by
-#: a factor of 2 to 4); the link states' decisions equal; a parameter after
+#: a factor of 2 to 4); ``ema_loads`` within EMA_RTOL; a parameter after
 #: the AdamW step within 1e-5 of its leaf's largest |p|, except where
 #: AdamW's normalised step m / sqrt(v) follows a gradient at rounding or
 #: moved by a flipped pick (then by at most one step of each sign, 2 · lr):
@@ -3140,6 +3144,17 @@ RANKS_TIMEOUT_S = 420
 RANKS_LOSS_RTOL = 1e-3
 RANKS_PARAM_TOL = 1e-5
 RANKS_NOISE_SHARE = 0.01
+#: ``ema_loads`` of ranks against one process.  A step moves the EMA by 0.1
+#: times the change of each expert's share of the picks, so n steps leave it
+#: within (1 - 0.9 ** n) times the largest share of the picks a step moved.
+#: Where the ranks keep one process's picks (data-parallel (c), the
+#: experts-only layout) the EMA is held at the CPU tests' EMA_RTOL of its
+#: largest element; where near-tied picks flip (the reference layout, FSDP)
+#: at EMA_PICK_SHARE of the picks moved a step.  The reference layout read
+#: 4.8e-5 of the largest element (PERF.md §6); an EMA that missed a step,
+#: or a rank's own loads in place of the summed ones, lies further off.
+EMA_RTOL = 1e-6
+EMA_PICK_SHARE = 1e-3
 #: A rank's allocator, set before its first allocation: ranks share the
 #: card, and segments that grow in place leave less of it reserved and
 #: unused (without it, the whole script ran out of memory in (c) on an
@@ -3392,9 +3407,9 @@ def ranks_groups_on_the_card(torch, card):
 
 def groups_path_check(torch, served):
     """The prompt's forward through the kernels and through the plain
-    versions from the same carried link state, the plain gating replaying
+    versions from the same carried ``ema_loads``, the plain gating replaying
     the kernel's picks and weights (``PickLog``), so that both forwards are
-    the same bits through all the layers: logits, every layer's link state
+    the same bits through all the layers: logits, every layer's ``ema_loads``
     and the metrics equal, the last layer's picks, counts, plan and buffer
     equal; the kernel's gate weights against the plain ones from the same
     logits at the gating check's band (rtol 1e-5, atol 1e-6 of weights at
@@ -3418,13 +3433,13 @@ def groups_path_check(torch, served):
     check(torch.equal(logits_k, logits_p), f"{where}: logits")
     for key, a, b in tree_pairs(aux_k["dyskew"], aux_p["dyskew"]):
         check(torch.equal(a, b), f"{where}: {key}")
-    compare_dispatch(torch, kern, plain, aux_k["dyskew"]["l0"]["link"], aux_p["dyskew"]["l0"]["link"],
+    compare_dispatch(torch, kern, plain, aux_k["dyskew"]["l0"]["ema_loads"], aux_p["dyskew"]["l0"]["ema_loads"],
                      aux_k["metrics"], aux_p["metrics"], where)
     check(picks.replayed == len(picks.calls), f"{where}: gating calls")
     check(picks.w_gap <= 1e-5 + 1e-6, f"{where}: gate weights {picks.w_gap} off the plain ones")
     (_, _, valid), _ = kern.last["dispatch"]
     return {"layers": picks.replayed, "slots": int(valid.numel()), "valid_frac": float(valid.float().mean()),
-            "logits_equal": True, "link_states_equal": True, "plan_equal": True, "buffer_equal": True,
+            "logits_equal": True, "ema_loads_equal": True, "plan_equal": True, "buffer_equal": True,
             "gate_weight_max_abs_err": picks.w_gap, "plain_pick_flips": picks.flips}
 
 
@@ -3526,6 +3541,27 @@ def ranks_spawn(reference, where, backend):
     return rows, time.perf_counter() - t0
 
 
+def ema_gap_check(one, got, steps, picks_kept, where):
+    """The largest gap of ``got``'s ``ema_loads`` leaves (numpy, by key) to
+    ``one``'s, over the largest |EMA|, checked against EMA_RTOL where the
+    ranks keep one process's picks and against the pick-share bound where
+    they do not; returns the gap."""
+    import numpy as np
+
+    check(sorted(got) == sorted(one) and all(k.endswith("ema_loads") for k in one),
+          f"{where}: dyskew leaves {sorted(got)} against one process's {sorted(one)}")
+    gap, abs_gap = 0.0, 0.0
+    for key, a in one.items():
+        d = float(np.abs(a - got[key]).max())
+        gap, abs_gap = max(gap, d / max(float(np.abs(a).max()), 1e-30)), max(abs_gap, d)
+    if picks_kept:
+        check(gap <= EMA_RTOL, f"{where}: ema_loads {gap} of the largest off one process's")
+    else:
+        limit = (1.0 - 0.9 ** steps) * EMA_PICK_SHARE
+        check(abs_gap <= limit, f"{where}: ema_loads {abs_gap} off one process's, beyond {limit}")
+    return gap
+
+
 def ranks_check(torch, one, rows, backend):
     """(c)'s checks of one run of the ranks against each other and against
     the one-process run; returns (row, roofline row, the ranks' summed
@@ -3538,7 +3574,7 @@ def ranks_check(torch, one, rows, backend):
     for name in ("plain", "compressed"):
         for key, a in rows[0][name]["dyskew"].items():
             check(all(np.array_equal(r[name]["dyskew"][key], a) for r in rows[1:]),
-                  f"{where} {name}: link state {key} differs between ranks")
+                  f"{where} {name}: {key} differs between ranks")
         check(all(r[name]["param_sums"] == rows[0][name]["param_sums"] for r in rows[1:]),
               f"{where} {name}: the ranks' parameters differ")
         check(all(r[name]["loss"] == rows[0][name]["loss"] for r in rows[1:]), f"{where} {name}: losses differ")
@@ -3547,13 +3583,7 @@ def ranks_check(torch, one, rows, backend):
     for key in ("loss", "grad_norm"):
         rel = max(abs(a - b) / abs(b) for a, b in zip(plain[key], one[key]))
         check(rel <= RANKS_LOSS_RTOL, f"{where}: {key} {plain[key]} against one process {one[key]}")
-    link_gap = {}
-    for key, a in one["dyskew"].items():
-        b = plain["dyskew"][key]
-        if key.endswith("ema_loads") or "/metrics/" in key:
-            link_gap[key] = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
-        else:
-            check(np.array_equal(a, b), f"{where}: link state {key} against one process")
+    ema_gap = ema_gap_check(one["dyskew"], plain["dyskew"], len(plain["loss"]), True, where)
     gaps = plain["against_one_process"]
     for key, g in gaps.items():
         check(g["max_rel"] <= RANKS_PARAM_TOL or (g["max_over_lr"] <= 2.0 and g["share_off"] <= RANKS_NOISE_SHARE),
@@ -3572,7 +3602,7 @@ def ranks_check(torch, one, rows, backend):
         "rank_ms_per_step": {name: [r[name]["ms"] for r in rows] for name in ("plain", "compressed")},
         "loss": {name: rows[0][name]["loss"] for name in ("plain", "compressed")},
         "grad_norm": {name: rows[0][name]["grad_norm"] for name in ("plain", "compressed")},
-        "link_states_equal_across_ranks": True, "link_float_gap_to_one_process": max(link_gap.values()),
+        "ema_loads_equal_across_ranks": True, "ema_loads_gap_to_one_process": ema_gap,
         "param_max_rel_gap": max(g["max_rel"] for g in gaps.values()),
         "param_max_gap_over_lr": max(g["max_over_lr"] for g in gaps.values()),
         "param_share_off_max": max(g["share_off"] for g in gaps.values()),
@@ -3726,8 +3756,8 @@ EP_DENSE_DECODE_STEPS = 8
 LAYER_TOL = 2.0 ** -6
 LAYER_PROMPTS = 2
 #: The float32 train steps under the reference's layout, a rank against one
-#: process: losses and ``grad_norm`` within RANKS_LOSS_RTOL, link states
-#: EQUAL, and each parameter within 2 · lr (one AdamW step of each sign).
+#: process: losses and ``grad_norm`` within RANKS_LOSS_RTOL, ``ema_loads``
+#: within EMA_PICK_SHARE's bound, and each parameter within 2 · lr (one AdamW step of each sign).
 #: Every gradient there comes from products of other shapes than one
 #: process's (a rank's heads, ffn columns and vocabulary rows), whose
 #: float32 sums cuBLAS orders otherwise, and a near-tied pick that flips in
@@ -3841,7 +3871,7 @@ def layer_outputs(torch, served, teacher=None, prompts=LAYER_PROMPTS):
     from repro_torch.models.layers import basic
     from repro_torch.models.layers.attention import attention_apply, mlp_apply
     from repro_torch.models.layers.mamba2 import mamba_apply
-    from repro_torch.models.layers.moe import moe_apply, moe_state_init
+    from repro_torch.models.layers.moe import moe_apply
     from repro_torch.models.perf_flags import PerfFlags, use_flags
 
     model, ctx, params, inputs, _, _ = served
@@ -3873,7 +3903,7 @@ def layer_outputs(torch, served, teacher=None, prompts=LAYER_PROMPTS):
                 if "moe" in lp:
                     h = basic.norm_apply(lp["norm2"], x, cfg.norm)
                     out["router"].append((h.reshape(-1, cfg.d_model) @ lp["moe"]["router"].to(h.dtype)).cpu())
-                    x = x + moe_apply(lp["moe"], h, cfg=cfg, state=moe_state_init(cfg, ctx, x.device), ctx=ctx)[0]
+                    x = x + moe_apply(lp["moe"], h, cfg=cfg, ctx=ctx)[0]
                 elif "ffn" in lp:
                     x = x + mlp_apply(lp["ffn"], basic.norm_apply(lp["norm2"], x, cfg.norm), cfg, ctx.ep_group)
                 out["layers"].append(x.cpu())
@@ -4164,7 +4194,7 @@ def ep_one_rank(torch, card, nccl_train):
     """(a): granite at full width and depth served (8 × 1024 prefill, 32
     greedy decode steps, each combine) on a one-rank NCCL mesh (data 1,
     model 1), through the model group's collectives, against no group:
-    the logits of every step, the tokens, and the link states of a carried
+    the logits of every step, the tokens, and the ``ema_loads`` of a carried
     forward the same bits, H9 too (its sum by token is deterministic).  Its
     two train steps are ``ranks`` (b)'s (``nccl_train``), whose loop now
     runs on the same mesh.  Returns (row, the main path's counts)."""
@@ -4214,9 +4244,9 @@ def ep_one_rank(torch, card, nccl_train):
                 check(all(torch.equal(a, b) for a, b in zip(la, lb)), f"{where} {name}: logits differ from no group")
                 check(all(torch.equal(a, b) for a, b in zip(ta, tb)), f"{where} {name}: tokens differ from no group")
                 pairs = tree_pairs(da, db)
-                check(all(torch.equal(a, b) for _, a, b in pairs), f"{where} {name}: link states differ from no group")
+                check(all(torch.equal(a, b) for _, a, b in pairs), f"{where} {name}: ema_loads differ from no group")
                 row[name] = {
-                    "logits_equal": True, "tokens_equal": True, "link_leaves_equal": len(pairs),
+                    "logits_equal": True, "tokens_equal": True, "ema_leaves_equal": len(pairs),
                     "prefill_s_group": got["group"][3], "prefill_s_alone": got["alone"][3],
                     "decode_s_group": got["group"][4], "decode_s_alone": got["alone"][4]}
                 del got
@@ -4415,20 +4445,15 @@ def ep_check(torch, one, rows, layers):
 
     def train_row(train, base, name, per_element):
         for key, a in train[0]["dyskew"].items():
-            check(all(np.array_equal(t["dyskew"][key], a) for t in train[1:]), f"{where} {name}: link state {key} "
+            check(all(np.array_equal(t["dyskew"][key], a) for t in train[1:]), f"{where} {name}: {key} "
                   "differs between ranks")
         check(all(t["loss"] == train[0]["loss"] and t["grad_norm"] == train[0]["grad_norm"] for t in train[1:]),
               f"{where} {name}: the ranks' losses or grad norms differ")
         for key in ("loss", "grad_norm"):
             rel = max(abs(a - b) / abs(b) for a, b in zip(train[0][key], base[key]))
             check(rel <= RANKS_LOSS_RTOL, f"{where} {name}: {key} {train[0][key]} against one process {base[key]}")
-        link_gap = {}
-        for key, a in base["dyskew"].items():
-            b = train[0]["dyskew"][key]
-            if key.endswith("ema_loads") or "/metrics/" in key:
-                link_gap[key] = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
-            else:
-                check(np.array_equal(a, b), f"{where} {name}: link state {key} against one process")
+        ema_gap = ema_gap_check(base["dyskew"], train[0]["dyskew"], len(train[0]["loss"]), per_element,
+                                f"{where} {name}")
         worst = {"max_rel": 0.0, "max_over_lr": 0.0, "share_off": 0.0}
         worst_leaf = ("", 0.0)
         for t in train:
@@ -4451,7 +4476,7 @@ def ep_check(torch, one, rows, layers):
                 "one_process": {k: base[k] for k in ("loss", "grad_norm", "ms", "peak_memory_bytes")},
                 "rank_ms_per_step": [t["ms"] for t in train],
                 "peak_memory_bytes": [t["peak_memory_bytes"] for t in train],
-                "link_states_equal_across_ranks": True, "link_float_gap_to_one_process": max(link_gap.values()),
+                "ema_loads_equal_across_ranks": True, "ema_loads_gap_to_one_process": ema_gap,
                 "param_gap_worst": worst, "param_share_off_worst_leaf": worst_leaf, **terms}
 
     for r in rows:
@@ -4865,15 +4890,14 @@ def fsdp_check(torch, one, rows):
         where = f"fsdp ({part})"
         train = [r[part]["train"] for r in rows]
         base = one[part]
+        ema_gaps = []
         for t in train:
             for key in ("loss", "grad_norm"):
                 rel = abs(t[key][0] - base[key][0]) / abs(base[key][0])
                 check(rel <= RANKS_LOSS_RTOL, f"{where}: {key} {t[key]} against one process {base[key]}")
-            for key, a in base["dyskew"].items():
-                if not (key.endswith("ema_loads") or "/metrics/" in key):
-                    check(np.array_equal(a, t["dyskew"][key]), f"{where}: link state {key} against one process")
             for key, g in t["against_one_process"].items():
                 check(g["max_over_lr"] <= 2.0, f"{where}: parameter {key} against one process: {g}")
+            ema_gaps.append(ema_gap_check(base["dyskew"], t["dyskew"], len(base["loss"]), False, where))
             issued = fsdp_issued(cfg, mesh, "train", TRAIN_BATCH // mesh["data"], h2=part == "d")
             check(fsdp_records(t["records"]) == issued, f"{where}: a rank's gathers and reduce-scatters against "
                   "what it issues")
@@ -4886,6 +4910,7 @@ def fsdp_check(torch, one, rows):
                      "params_a_rank": train[0]["params_a_rank"], "rank_seconds": [t["seconds"] for t in train],
                      "peak_memory_bytes": [t["peak_memory_bytes"] for t in train],
                      "param_max_over_lr": max(g["max_over_lr"] for t in train for g in t["against_one_process"].values()),
+                     "ema_loads_gap_to_one_process": max(ema_gaps),
                      **wire_row(train[0]["records"], FSDP_WORLD)}
     # FSDP's all-gathers alone (the data axes' part of what (c) and (d)
     # issue, held above): H2's move half the bytes.

@@ -34,11 +34,7 @@
     slices each for the restoring rank.  A checkpoint written at (data 2,
     model 2) restores at (data 1, model 1), (4, 1) and (1, 2).  The rank files of a mesh
     with a model axis are named by the global rank and both axes,
-    ``rank<r>of<D>x<M>``.  The MoE links keep one state machine an
-    expert-parallel shard: restored onto another shard count, a link leaf
-    (under ``dyskew/``, shaped by its shard count) starts from ``like``'s,
-    since the shards it described are not this mesh's; ``ema_loads``, an
-    expert's, comes back.
+    ``rank<r>of<D>x<M>``.
 """
 
 from __future__ import annotations
@@ -272,11 +268,7 @@ class CheckpointManager:
             for key, leaf in flatten_with_paths(replicated):
                 arr = data[key]
                 arr = self._slice(arr, self.shards.get(key, ()))
-                ref = torch.as_tensor(leaf)
-                if key.startswith("dyskew/") and arr.shape != tuple(ref.shape):
-                    out[key] = ref.clone()
-                    continue
-                out[key] = _from_host(arr, raw.get(key), ref, key)
+                out[key] = _from_host(arr, raw.get(key), torch.as_tensor(leaf), key)
         restored = _unflatten_like(replicated, out)
         if local:
             local_out = {}

@@ -15,7 +15,7 @@ this process as rank 0 of a fake process group of 256 or 512
 ``meta`` tensors move nothing and are counted.  The rank holds its slices
 under ``make_rules`` (``repro``'s ``default_rules`` with the batch over the
 data axes, and H6 / H10) and its rows of the batch, with ``spmd_ctx``'s
-token groups and link instances; its counted work is one device's, priced
+token groups and expert-parallel shards; its counted work is one device's, priced
 over ``chips`` as ``repro`` prices its per-device module.  ``--mesh card``
 traces the reference's global shapes on one H100: many ``train_4k`` cells
 do not fit in its 80 GB, and the record says so (``fits_hbm``).  It sets
@@ -97,7 +97,7 @@ def spmd_ctx(cfg: ArchConfig, mesh: Mesh, tokens_per_call: int = 1, batch: int =
              rules: Optional[Dict] = None) -> SpmdCtx:
     """``repro``'s ``spmd_ctx`` on ``mesh``'s groups: a token group a data
     rank (one where the tokens of a call do not split), the model axis's
-    link instances (one where it does not divide the experts), and the
+    expert-parallel shards (one where it does not divide the experts), and the
     batch over the data group, replicated where it does not divide the
     batch (``long_500k``: the group then only gathers FSDP's leaves)."""
     groups = dp_size(mesh)

@@ -84,7 +84,7 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 def mesh_ctx(mesh: Mesh, rules=None, num_groups: Optional[int] = None):
     """The layers' ``SpmdCtx`` on ``mesh``'s groups: one token group a data
-    rank (or ``num_groups``), a link instance a model rank, ``rules``
+    rank (or ``num_groups``), an expert-parallel shard a model rank, ``rules``
     (default: ``repro``'s ``default_rules`` for the mesh, FSDP on)."""
     from repro_torch.models.layers.moe import SpmdCtx
     from repro_torch.models.param import default_rules

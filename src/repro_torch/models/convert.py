@@ -2,7 +2,8 @@
 
 ``repro`` keeps parameters, DySkew link state and decode state as nested
 dicts of arrays; pulled to the host they are nested dicts of numpy arrays
-with the same keys and shapes as the port's trees, so carrying them across
+with the same keys and shapes as the port's trees (the MoE links' state
+machines aside, which the port does not carry), so carrying them across
 is one copy per leaf.
 """
 

@@ -8,12 +8,16 @@ set of parallel consumers (the EP shards).
 Mapping:
   row            → token
   worker         → expert-parallel shard
-  link instance  → per-EP-shard state machine, carried across steps
+  link           → the configuration's constant decision: under
+                   ``adaptive`` every shard distributes from its first
+                   tick (the EAGER policy; the heavy-row guard is off, since
+                   token rows are uniform d_model-sized vectors), else
+                   none does; the exponential average of the expert
+                   loads, ``ema_loads``, is carried across steps
   legacy static  → uniform per-expert capacity (drops overflow, GShard)
   DySkew         → load-proportional effective capacity inside a fixed
                    buffer: idle shards' unused capacity is reassigned to
-                   hot experts when the state machines commit to
-                   redistribution (EAGER for training, LATE selectable)
+                   hot experts
 
 Shapes are fully static: the dispatch buffer is (E, G·C_buf, d) for G token
 groups with C_buf = headroom × uniform capacity of a group; the *effective*
@@ -31,15 +35,15 @@ groups.  Each kernel still launches once a layer: the gating on all the
 tokens, the histogram on ids offset by ``g·E`` into ``G·E`` bins, the gather
 into all groups' slots.  Across data-parallel ranks (``SpmdCtx.group``) a
 rank holds ``num_groups / world`` of the groups and one ``all_reduce`` a
-layer sums the groups' counts and the router's mean probabilities, so the
-link state and ``ema_loads`` are the same bits on every rank and equal to
-one process's run with all G groups.
+layer sums the groups' counts and the router's mean probabilities, so
+``ema_loads`` is the same bits on every rank and equal to one process's
+run with all G groups.
 
 Across the expert-parallel ranks of a model group (``SpmdCtx.ep_group``,
 ``num_ep_shards`` = its size M) the layout is GSPMD's for ``repro``'s
 mesh: the M ranks hold the same tokens, and rank m holds experts
 ``[m·E/M, (m+1)·E/M)`` of ``w_gate`` / ``w_up`` / ``w_down``.  Gating,
-histogram, the link's tick and the routing plan run whole on every rank,
+histogram, the link and the routing plan run whole on every rank,
 the same bits on each; the slots are expert-major, so a shard's slots are
 one contiguous range of ``src`` / ``valid``, and the gather kernel fills
 only those.  The default combine all-gathers the expert outputs over the
@@ -48,8 +52,7 @@ adds this rank's weighted outputs by token and all-reduces the partial
 ``y`` (T·d on the wire instead of E·C·d).  No token moves between ranks.  The router stays whole on every
 rank, where ``repro``'s spec shards its experts axis too: its softmax and
 top-k need all E logits, and the replicated product computes the same
-function.  The M link instances are the shards' state machines, ticked on
-the same summed loads on every rank.
+function.
 """
 
 from __future__ import annotations
@@ -63,8 +66,6 @@ import torch.nn.functional as F
 from repro_torch import distributed, tracing
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config.base import ArchConfig
-from repro_torch.core import state_machine
-from repro_torch.core.types import DySkewConfig, Policy, link_state_init
 from repro_torch.kernels.combine import ops as combine_ops
 from repro_torch.kernels.combine.ref import moe_combine_ref
 from repro_torch.kernels.dispatch import ops as dispatch_ops
@@ -84,7 +85,7 @@ class SpmdCtx:
     """Static layout facts the layers need."""
 
     num_groups: int = 1        # token groups over all data-parallel ranks
-    num_ep_shards: int = 1     # expert-parallel shards (link instances)
+    num_ep_shards: int = 1     # expert-parallel shards
     group: Any = None          # the data group, over (pod, data) (None: one process)
     ep_group: Any = None       # the model group the parameters are sharded over
     #: The rule table of the mesh's layout (``param.model_rules()`` where
@@ -153,20 +154,6 @@ PLAIN_OPS = DispatchOps(topk_gating_ref, load_histogram_ref, dispatch_gather_ref
                         moe_combine_ref)
 
 
-def moe_dyskew_config(adaptive: bool) -> DySkewConfig:
-    """EAGER = adaptive capacity from step 0 (the Snowpark policy);
-    NEVER = the static uniform-capacity baseline."""
-    return DySkewConfig(
-        policy=Policy.EAGER_SNOWPARK if adaptive else Policy.NEVER,
-        n_strikes=2,
-        theta=0.7,
-        # Token 'rows' are uniform d_model-sized vectors: the batch-density
-        # heavy-row guard must never fire here.
-        min_batch_density_frac=0.0,
-        heavy_row_bytes=float("inf"),
-    )
-
-
 def moe_specs(cfg: ArchConfig) -> Dict:
     assert cfg.moe is not None
     d, E, f = cfg.d_model, cfg.moe.num_experts, cfg.moe.expert_ff
@@ -178,18 +165,12 @@ def moe_specs(cfg: ArchConfig) -> Dict:
     }
 
 
-def moe_state_init(cfg: ArchConfig, ctx: SpmdCtx, device: DeviceLike = None) -> Dict:
-    """Carried DySkew state for ONE MoE layer (stack across layers outside)."""
+def moe_state_init(cfg: ArchConfig, device: DeviceLike = None) -> Dict:
+    """Carried DySkew state for ONE MoE layer (stack across layers outside):
+    the exponential average of the expert loads, uniform at first."""
     assert cfg.moe is not None
-    dev = resolve_device(device)
-    dk = moe_dyskew_config(cfg.moe.adaptive)
-    return {
-        "link": link_state_init(ctx.num_ep_shards, dk, dev),
-        "ema_loads": torch.full(
-            (cfg.moe.num_experts,), 1.0 / cfg.moe.num_experts,
-            dtype=torch.float32, device=dev,
-        ),
-    }
+    E = cfg.moe.num_experts
+    return {"ema_loads": torch.full((E,), 1.0 / E, dtype=torch.float32, device=resolve_device(device))}
 
 
 def capacities(cfg: ArchConfig, tokens_per_group: int) -> Tuple[int, int]:
@@ -201,6 +182,17 @@ def capacities(cfg: ArchConfig, tokens_per_group: int) -> Tuple[int, int]:
     )
     headroom = 2 if moe.adaptive else 1
     return c_static, c_static * headroom
+
+
+def effective_capacity(ema: torch.Tensor, *, adaptive: bool, c_static: int, c_buf: int) -> torch.Tensor:
+    """(E,) int32 capacity of each expert: with ``adaptive`` load-proportional
+    to ``ema`` inside the same total budget (idle capacity flows to hot
+    experts; ``torch.round`` is half-to-even, as the reference's rounding
+    is), else the uniform ``c_static``."""
+    E = ema.shape[0]
+    if adaptive:
+        return torch.clamp(torch.round(ema * E * c_static), 1, c_buf).to(torch.int32)
+    return torch.full((E,), c_static, dtype=torch.int32, device=ema.device)
 
 
 def group_keys(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
@@ -296,11 +288,13 @@ def moe_apply(
     x: torch.Tensor,                 # (B, S, d)
     *,
     cfg: ArchConfig,
-    state: Dict,                     # from moe_state_init
+    state: Optional[Dict] = None,    # from moe_state_init
     ctx: SpmdCtx = SpmdCtx(),
     ops: DispatchOps = KERNEL_OPS,
 ) -> Tuple[torch.Tensor, Dict, Dict]:
-    """Returns (y, new_state, metrics); ``state`` is left as it was.
+    """Returns (y, new_state, metrics); ``state`` is left as it was.  A
+    stateless call (``state`` None) starts from ``moe_state_init``'s EMA
+    and returns None as its new state.
 
     With ``ctx.group`` the metrics are the global ones, the same on every
     rank, and ``moe_aux_loss`` has the global value with this rank's share
@@ -339,7 +333,7 @@ def moe_apply(
     logits = xt @ p["router"].to(x.dtype)                  # (T, E)
     gate_w, gate_e = ops.gating(logits, k)                 # (T, k) f32 / i32
 
-    # ---- Sibling-observable load metrics (per EP shard) --------------- #
+    # ---- Expert loads ------------------------------------------------- #
     flat_e = gate_e.reshape(Gl, N)
     counts = ops.histogram(group_keys(flat_e, E), Gl * E).reshape(Gl, E)
     if ctx.group is None:
@@ -359,38 +353,15 @@ def moe_apply(
     # Global expert loads: the sum over all groups, whole numbers in
     # float32, so every rank gets the same bits.
     loads_e = all_counts[0] if G == 1 else all_counts.sum(dim=0)
-    n_ep = ctx.num_ep_shards
-    shard_loads = loads_e.reshape(n_ep, E // n_ep).sum(dim=-1)   # (n_ep,)
 
     with tracing.span("moe.link"):
-        # ---- DySkew state machines (one per EP shard) ----------------- #
-        dk = moe_dyskew_config(moe.adaptive)
-        bytes_per_row = torch.full_like(shard_loads, 2.0 * d)
-        new_link, distribute = state_machine.tick(
-            state["link"],
-            dk,
-            rows_this_tick=shard_loads,
-            sync_time_this_tick=shard_loads,   # cost ∝ tokens (uniform experts)
-            batch_density=shard_loads,
-            bytes_per_row=bytes_per_row,
-            signal_this_tick=shard_loads > 0,
-        )
+        # ---- DySkew link: the EMA of the loads, the effective capacity -- #
+        prev = (moe_state_init(cfg, dev) if state is None else state)["ema_loads"]
         total_load = torch.clamp(loads_e.sum(), min=1.0)
-        ema = 0.9 * state["ema_loads"] + 0.1 * loads_e / total_load
-        new_state = {"link": new_link, "ema_loads": ema}
-
-        # ---- Effective capacity: the redistribution decision ----------- #
-        # Static mode: uniform c_static. Distributing: load-proportional caps
-        # inside the same total budget (idle capacity flows to hot experts).
-        # torch.round is half-to-even, as the reference's rounding is.
-        adaptive_caps = torch.clamp(
-            torch.round(ema * E * c_static), 1, c_buf
-        ).to(torch.int32)
-        expert_shard = torch.arange(E, device=dev) // (E // n_ep)
-        use_adaptive = distribute[expert_shard]                # (E,)
-        cap_e = torch.where(
-            use_adaptive, adaptive_caps, torch.full_like(adaptive_caps, c_static)
-        )
+        ema = 0.9 * prev + 0.1 * loads_e / total_load
+        new_state = None if state is None else {"ema_loads": ema}
+        cap_e = effective_capacity(ema, adaptive=moe.adaptive, c_static=c_static, c_buf=c_buf)
+        distribute_frac = torch.full((), float(moe.adaptive), dtype=torch.float32, device=dev)
 
     # ---- Sorted gather dispatch ---------------------------------------- #
     order, slot_sorted, keep, src, valid = dispatch_plan(
@@ -437,6 +408,8 @@ def moe_apply(
         # picks from the summed counts, as whole numbers.
         kept = torch.minimum(all_counts, cap_e.to(torch.float32)).sum()
         dropped = 1.0 - kept / float(G * N)
+    n_ep = ctx.num_ep_shards
+    shard_loads = loads_e.reshape(n_ep, E // n_ep).sum(dim=-1)   # (n_ep,)
     imbalance = shard_loads.max() / torch.clamp(shard_loads.mean(), min=1.0)
     # Standard load-balancing auxiliary loss (Switch/GShard): E·Σ f_e·P_e.
     # The fused gating keeps the full probabilities to itself, and this
@@ -452,7 +425,7 @@ def moe_apply(
     metrics = {
         "moe_dropped_frac": dropped,
         "moe_shard_imbalance": imbalance,
-        "moe_distribute_frac": distribute.to(torch.float32).mean(),
+        "moe_distribute_frac": distribute_frac,
         "moe_aux_loss": aux_loss,
     }
     return y.reshape(B, S, d), new_state, metrics

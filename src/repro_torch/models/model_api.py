@@ -151,9 +151,11 @@ class Model:
         return logits if vocab is None else basic.gather_vocab(logits[:, -1:], vocab)
 
     def dyskew_init(self, ctx: SpmdCtx = SpmdCtx(), device: DeviceLike = None) -> Optional[Dict]:
+        """The MoE layers' carried link states; they are the same under
+        every layout ``ctx`` gives."""
         if self.cfg.moe is None or self.cfg.family == "encdec":
             return None
-        return transformer.dyskew_states_init(self.cfg, ctx, device)
+        return transformer.dyskew_states_init(self.cfg, device)
 
 
 def build(cfg: ArchConfig) -> Model:

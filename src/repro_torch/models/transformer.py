@@ -9,7 +9,7 @@ scans over.  Here the block stack is a Python loop over that leading axis,
 so carrying weights across from ``repro`` is one copy per leaf.  With
 ``cfg.remat`` and grad on, each block runs under
 ``torch.utils.checkpoint``, as ``repro`` wraps its scanned block in
-``jax.checkpoint``: the backward recomputes the block, MoE link tick
+``jax.checkpoint``: the backward recomputes the block, the MoE link's EMA
 included, from the same inputs.
 
 Under a model group (``SpmdCtx.ep_group``) each layer holds what the rule
@@ -158,12 +158,13 @@ def mamba_layer_positions(cfg: ArchConfig) -> Tuple[int, ...]:
     )
 
 
-def dyskew_states_init(cfg: ArchConfig, ctx: SpmdCtx, device: DeviceLike = None) -> Dict:
-    """Stacked per-block DySkew link state for every MoE position."""
+def dyskew_states_init(cfg: ArchConfig, device: DeviceLike = None) -> Dict:
+    """Stacked per-block DySkew link state (``ema_loads``) for every MoE
+    position."""
     nb = num_blocks(cfg)
     out = {}
     for j in moe_layer_positions(cfg):
-        one = moe_state_init(cfg, ctx, device)
+        one = moe_state_init(cfg, device)
         out[f"l{j}"] = tree_map(
             lambda a: a.expand((nb,) + tuple(a.shape)).clone(), one
         )
@@ -274,21 +275,9 @@ def _apply_layer(
     if "moe" in lp:
         with tracing.span("moe"):
             h = basic.norm_apply(lp["norm2"], x, cfg.norm)
-            # Stateless callers (e.g. serving without carried DySkew state)
-            # get a fresh INIT-state link on every call: under the eager
-            # policy it is distributing on its first tick, so the adaptive
-            # capacities are live in serving too.
-            stateless = moe_state is None
-            if stateless:
-                with tracing.span("moe.link"):
-                    ms = moe_state_init(cfg, ctx, x.device)
-            else:
-                ms = moe_state
             moe_out, new_moe_state, moe_metrics = moe_apply(
-                lp["moe"], h, cfg=cfg, state=ms, ctx=ctx, ops=ops
+                lp["moe"], h, cfg=cfg, state=moe_state, ctx=ctx, ops=ops
             )
-        if stateless:
-            new_moe_state = None
         for k, v in moe_metrics.items():
             metrics[k] = metrics.get(k, 0.0) + v
         x = x + moe_out

@@ -14,10 +14,9 @@ allocated, recorded or launched.  The ranges:
   recompute inside it; ``opt_update``, the clip included.
 - ``dyskew.attn`` (``transformer._apply_layer``): ``attention_apply``.
 - ``dyskew.moe`` (same): the MoE layer, ``norm2`` through ``moe_apply``.
-- ``dyskew.moe.link``: the DySkew link, two ranges a layer with one name
-  (sum them): the fresh link state a stateless caller builds
-  (``_apply_layer``), and ``moe_apply``'s ``state_machine.tick``, EMA and
-  capacity decision.
+- ``dyskew.moe.link`` (``moe_apply``): the DySkew link, one range a layer:
+  the loads' EMA (from a fresh one for a stateless caller) and the
+  effective capacities.
 - ``dyskew.head`` (``transformer.forward``): the final norm and the logits.
 
 While a profiler records, ``calling_thread()`` keeps a backward on the

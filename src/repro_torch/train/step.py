@@ -2,9 +2,9 @@
 
 ``make_train_step`` returns the training step: forward + backward +
 (optionally compressed) gradient reduction over the data-parallel ranks +
-global-norm clip + optimizer update + DySkew link-state advance, with
-optional microbatched gradient accumulation (the links tick once per
-microbatch).  The steps are plain closures: there is no compile step, and
+global-norm clip + optimizer update + the MoE links' load averages
+advanced, with optional microbatched gradient accumulation (the averages
+advance once per microbatch).  The steps are plain closures: there is no compile step, and
 each call runs eagerly on the device its tensors live on.
 
 With a data-parallel group (``SpmdCtx.group``) each rank's batch is its
@@ -192,7 +192,7 @@ def make_train_step(
             metrics = aux["metrics"]
         else:
             # Gradient accumulation over microbatches in float32; the DySkew
-            # links tick once per microbatch.
+            # links' averages advance once per microbatch.
             size = next(iter(batch.values())).shape[0] // nm
             grads = zip_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
             dk, losses, mmetrics = dyskew, [], []

@@ -2,17 +2,18 @@
 parameters (made with numpy, carried across by ``params_from_numpy``), the
 same inputs, ten steps of carried DySkew state, static and adaptive, both
 combine paths, with the router skewed as ``benchmarks/bench_moe_dispatch.py``
-skews it.
+skews it.  The port carries ``ema_loads`` alone: its link decision is a
+constant of the configuration, which
+``test_moe_link_decides_from_its_first_tick`` holds to the reference's
+state machine.
 
-Tolerances: the link state's integer leaves, ``moe_dropped_frac`` and
+Tolerances: the effective capacities, ``moe_dropped_frac`` and
 ``moe_distribute_frac`` EQUAL (they are counts over which tokens were kept
 and which shards distribute: any difference in keep or slot assignment
 shows there and, far above tolerance, in ``y``); ``y`` rtol/atol 1e-5 in
-float32 (matrix products and the combine sum in another order); the float
-metrics of the link rtol 1e-6.
+float32 (matrix products and the combine sum in another order);
+``ema_loads`` rtol 1e-6.
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,8 @@ import pytest
 import torch
 
 from repro.config.base import ArchConfig as JArch, MoEConfig as JMoE
+from repro.core import state_machine as jsm
+from repro.core import types as jty
 from repro.models.layers import moe as jmoe
 from repro.models.perf_flags import PerfFlags as JFlags, use_flags as j_use_flags
 from repro_torch.config.base import ArchConfig as TArch, MoEConfig as TMoE
@@ -57,16 +60,32 @@ def _numpy_params(alpha, seed=0, e=E):
     }
 
 
-def _assert_state_equal(js, ts, where):
-    jl, tl = js["link"], ts["link"]
-    for key in ("state", "strikes", "transitions", "tick"):
-        np.testing.assert_array_equal(np.asarray(jl[key]), tl[key].numpy(),
-                                      err_msg=f"{where}: {key}")
-    for key, a in jl["metrics"].items():
-        np.testing.assert_allclose(np.asarray(a), tl["metrics"][key].numpy(),
-                                   rtol=1e-6, err_msg=f"{where}: {key}")
+def _reference_capacity(jlink, ema, c_static, c_buf):
+    """``repro``'s effective capacities, as its ``moe_apply`` derives them
+    from the shards' distribute mask after a tick and the loads' EMA."""
+    E = ema.shape[0]
+    distribute = jsm.routes_remote(jlink["state"]).astype(jnp.int32)
+    use = distribute[jnp.arange(E) // (E // distribute.shape[0])] > 0
+    caps = jnp.clip(jnp.round(ema * E * c_static), 1, c_buf).astype(jnp.int32)
+    return np.asarray(jnp.where(use, caps, c_static))
+
+
+def _assert_state_equal(js, ts, where, capacity_of=None):
+    """The port's carried state, ``ema_loads`` alone, against the
+    reference's; with ``capacity_of`` (the port's config, the tokens of a
+    group) after a tick, also the port's capacities from the reference's
+    EMA against the reference's own."""
+    assert sorted(ts) == ["ema_loads"], where
     np.testing.assert_allclose(np.asarray(js["ema_loads"]), ts["ema_loads"].numpy(),
                                rtol=1e-6, err_msg=f"{where}: ema_loads")
+    if capacity_of is None:
+        return
+    cfg, tokens = capacity_of
+    c_static, c_buf = tmoe.capacities(cfg, tokens)
+    got = tmoe.effective_capacity(torch.tensor(np.asarray(js["ema_loads"])), adaptive=cfg.moe.adaptive,
+                                  c_static=c_static, c_buf=c_buf)
+    np.testing.assert_array_equal(got.numpy(), _reference_capacity(js["link"], js["ema_loads"], c_static, c_buf),
+                                  err_msg=f"{where}: capacities")
 
 
 @pytest.mark.parametrize("scatter", [False, True], ids=["gather_combine", "scatter_combine"])
@@ -80,7 +99,7 @@ def test_ten_carried_steps(alpha, adaptive, scatter):
     jctx = jmoe.SpmdCtx(num_groups=1, num_ep_shards=N_EP)
     tctx = tmoe.SpmdCtx(num_groups=1, num_ep_shards=N_EP)
     jstate = jmoe.moe_state_init(jcfg, jctx)
-    tstate = tmoe.moe_state_init(tcfg, tctx, device="cpu")
+    tstate = tmoe.moe_state_init(tcfg, device="cpu")
     _assert_state_equal(jstate, tstate, "init")
 
     with j_use_flags(JFlags(moe_scatter_combine=scatter)):
@@ -95,7 +114,7 @@ def test_ten_carried_steps(alpha, adaptive, scatter):
             ty, tstate, tm = tmoe.moe_apply(tp, torch.from_numpy(x), cfg=tcfg,
                                             state=tstate, ctx=tctx)
         where = f"step {step}"
-        _assert_state_equal(jstate, tstate, where)
+        _assert_state_equal(jstate, tstate, where, capacity_of=(tcfg, B * S))
         for key in ("moe_dropped_frac", "moe_distribute_frac"):
             assert float(jm[key]) == float(tm[key]), (where, key)
         for key in ("moe_shard_imbalance", "moe_aux_loss"):
@@ -108,6 +127,57 @@ def test_ten_carried_steps(alpha, adaptive, scatter):
         assert max(dropped) > 0.0   # the skew does overflow the capacity
 
 
+def _tick_loads(kind, tick, rng):
+    """(E,) float32 expert loads of one call of B·S tokens, K picks each."""
+    picks = B * S * K
+    if kind == "zipf":
+        probs = 1.0 / np.arange(1, E + 1) ** 1.2
+        return rng.multinomial(picks, probs / probs.sum()).astype(np.float32)
+    if kind == "uniform":
+        return np.full(E, picks / E, np.float32)
+    if kind == "one_hot_shard":
+        out = np.zeros((N_EP, E // N_EP), np.float32)
+        out[tick % N_EP] = picks / (E // N_EP)
+        return out.reshape(E)
+    return np.zeros(E, np.float32)
+
+
+@pytest.mark.parametrize("loads", ["zipf", "uniform", "one_hot_shard", "zero"])
+@pytest.mark.parametrize("adaptive", [False, True], ids=["static", "adaptive"])
+def test_moe_link_decides_from_its_first_tick(adaptive, loads):
+    """The port takes the link's decision from the configuration: every
+    shard distributes exactly when ``adaptive`` is set.  The reference's
+    state machine under its ``moe_dyskew_config``, ticked as its
+    ``moe_apply`` ticks it, says the same on each of 16 ticks, carried from
+    INIT and from a fresh INIT each tick (a stateless call); and the port's
+    capacities from the same EMA equal those the reference derives."""
+    jcfg, tcfg = _cfgs(adaptive)
+    dk = jmoe.moe_dyskew_config(adaptive)
+    c_static, c_buf = tmoe.capacities(tcfg, B * S)
+
+    @jax.jit
+    def tick(link, loads_e):
+        shard = loads_e.reshape(N_EP, -1).sum(axis=-1)
+        return jsm.tick(link, dk, rows_this_tick=shard, sync_time_this_tick=shard, batch_density=shard,
+                        bytes_per_row=jnp.full_like(shard, 2.0 * D), signal_this_tick=shard > 0)
+
+    rng = np.random.default_rng(5)
+    carried = jty.link_state_init(N_EP, dk)
+    ema = jmoe.moe_state_init(jcfg, jmoe.SpmdCtx(num_groups=1, num_ep_shards=N_EP))["ema_loads"]
+    for t in range(16):
+        loads_e = jnp.asarray(_tick_loads(loads, t, rng))
+        carried, distribute = tick(carried, loads_e)
+        _, fresh = tick(jty.link_state_init(N_EP, dk), loads_e)
+        assert np.asarray(distribute).tolist() == [adaptive] * N_EP, t
+        assert np.asarray(fresh).tolist() == [adaptive] * N_EP, t
+        ema = 0.9 * ema + 0.1 * loads_e / jnp.maximum(loads_e.sum(), 1.0)
+        got = tmoe.effective_capacity(torch.tensor(np.asarray(ema)), adaptive=adaptive,
+                                      c_static=c_static, c_buf=c_buf)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), _reference_capacity(carried, ema, c_static, c_buf),
+                                      err_msg=f"tick {t}")
+
+
 def test_adaptive_drops_less_than_static_under_skew():
     """The claim of ``benchmarks/bench_moe_dispatch.py``, on the port."""
     out = {}
@@ -115,7 +185,7 @@ def test_adaptive_drops_less_than_static_under_skew():
         _, tcfg = _cfgs(adaptive)
         tp = params_from_numpy(_numpy_params(1.5), device="cpu")
         ctx = tmoe.SpmdCtx(num_groups=1, num_ep_shards=N_EP)
-        state = tmoe.moe_state_init(tcfg, ctx, device="cpu")
+        state = tmoe.moe_state_init(tcfg, device="cpu")
         rng = np.random.default_rng(100)
         fracs = []
         for _ in range(STEPS):
@@ -164,7 +234,7 @@ def test_plain_ops_give_the_same_as_the_default_on_cpu():
     _, tcfg = _cfgs(True)
     tp = params_from_numpy(_numpy_params(0.8), device="cpu")
     ctx = tmoe.SpmdCtx(num_groups=1, num_ep_shards=N_EP)
-    state = tmoe.moe_state_init(tcfg, ctx, device="cpu")
+    state = tmoe.moe_state_init(tcfg, device="cpu")
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((B, S, D)).astype(np.float32))
     y1, s1, _ = tmoe.moe_apply(tp, x, cfg=tcfg, state=state, ctx=ctx)
     y2, s2, _ = tmoe.moe_apply(tp, x, cfg=tcfg, state=state, ctx=ctx, ops=tmoe.PLAIN_OPS)
@@ -186,7 +256,7 @@ def test_default_combine_on_cpu_is_the_loop_bit_for_bit(dtype):
     for ops in (tmoe.KERNEL_OPS, tmoe.DispatchOps(combine=tmoe.PLAIN_OPS.combine)):
         tp = {k: v.requires_grad_(True) for k, v in params_from_numpy(p_np, device="cpu", dtype=dtype).items()}
         x = torch.from_numpy(x_np).to(dtype).requires_grad_(True)
-        y, _, m = tmoe.moe_apply(tp, x, cfg=tcfg, state=tmoe.moe_state_init(tcfg, ctx, device="cpu"),
+        y, _, m = tmoe.moe_apply(tp, x, cfg=tcfg, state=tmoe.moe_state_init(tcfg, device="cpu"),
                                  ctx=ctx, ops=ops)
         runs.append([y.detach()] + list(torch.autograd.grad(y, [x] + [tp[k] for k in sorted(tp)], dy)))
         assert float(m["moe_dropped_frac"]) > 0.1
@@ -195,13 +265,19 @@ def test_default_combine_on_cpu_is_the_loop_bit_for_bit(dtype):
 
 
 def test_state_is_not_mutated():
+    """A carried call leaves its state as it was and returns the advanced
+    EMA; a stateless call starts from the same EMA, gives the same output
+    and returns no state."""
     _, tcfg = _cfgs(True)
     tp = params_from_numpy(_numpy_params(0.8), device="cpu")
     ctx = tmoe.SpmdCtx(num_groups=1, num_ep_shards=N_EP)
-    state = tmoe.moe_state_init(tcfg, ctx, device="cpu")
+    state = tmoe.moe_state_init(tcfg, device="cpu")
+    before = state["ema_loads"].clone()
     x = torch.zeros(B, S, D)
-    _, new_state, _ = tmoe.moe_apply(tp, x, cfg=tcfg, state=state, ctx=ctx)
-    assert int(state["link"]["tick"]) == 0 and int(new_state["link"]["tick"]) == 1
+    y, new_state, _ = tmoe.moe_apply(tp, x, cfg=tcfg, state=state, ctx=ctx)
+    assert torch.equal(state["ema_loads"], before) and not torch.equal(new_state["ema_loads"], before)
+    y_stateless, none, _ = tmoe.moe_apply(tp, x, cfg=tcfg, ctx=ctx)
+    assert none is None and torch.equal(y_stateless, y)
 
 
 def test_more_than_one_group_raises():
@@ -212,7 +288,7 @@ def test_more_than_one_group_raises():
     tp = params_from_numpy(_numpy_params(0.0), device="cpu")
     assert (B * S) % 3
     ctx = tmoe.SpmdCtx(num_groups=3, num_ep_shards=N_EP)
-    state = tmoe.moe_state_init(tcfg, ctx, device="cpu")
+    state = tmoe.moe_state_init(tcfg, device="cpu")
     with pytest.raises(ValueError, match="num_groups"):
         tmoe.moe_apply(tp, torch.zeros(B, S, D), cfg=tcfg, state=state, ctx=ctx)
 
@@ -225,26 +301,32 @@ def test_capacities_truncate_like_the_reference(tokens, adaptive):
 
 
 def test_specs_and_dyskew_config_match():
+    """The specs match, and the reference's link configuration has the
+    facts the port's constant decision rests on: the eager policy under
+    ``adaptive`` (else NEVER), and the heavy-row guard off (a density
+    floor of 0 and rows of ``inf`` bytes)."""
     jcfg, tcfg = _cfgs(True)
     js, ts = jmoe.moe_specs(jcfg), tmoe.moe_specs(tcfg)
     assert {k: (v.shape, v.axes, v.init, v.scale) for k, v in js.items()} == \
            {k: (v.shape, v.axes, v.init, v.scale) for k, v in ts.items()}
     for adaptive in (False, True):
-        jd, td = jmoe.moe_dyskew_config(adaptive), tmoe.moe_dyskew_config(adaptive)
-        assert {f.name: (int(getattr(jd, f.name)) if f.name in ("policy", "skew_model")
-                         else getattr(jd, f.name)) for f in dataclasses.fields(jd)} == \
-               {f.name: (int(getattr(td, f.name)) if f.name in ("policy", "skew_model")
-                         else getattr(td, f.name)) for f in dataclasses.fields(td)}
+        jd = jmoe.moe_dyskew_config(adaptive)
+        assert jd.policy == (jty.Policy.EAGER_SNOWPARK if adaptive else jty.Policy.NEVER)
+        assert jd.min_batch_density_frac == 0.0 and jd.heavy_row_bytes == float("inf")
 
 
 def test_state_from_numpy_keeps_types():
-    jcfg, _ = _cfgs(True)
+    """The reference's MoE state, its link aside, carries across as the
+    port's ``moe_state_init`` (keys, dtype, bits); an int32 scalar stays
+    one, a bfloat16 leaf stays bfloat16."""
+    jcfg, tcfg = _cfgs(True)
     jstate = jmoe.moe_state_init(jcfg, jmoe.SpmdCtx(num_groups=1, num_ep_shards=N_EP))
-    ts = state_from_numpy(jax.tree.map(np.asarray, jstate), device="cpu")
-    assert ts["link"]["state"].dtype == torch.int32
-    assert ts["link"]["tick"].shape == () and ts["link"]["tick"].dtype == torch.int32
-    assert ts["link"]["metrics"]["sync_window"].shape == (N_EP, 8)
-    assert ts["ema_loads"].dtype == torch.float32
+    ts = state_from_numpy({"ema_loads": np.asarray(jstate["ema_loads"])}, device="cpu")
+    own = tmoe.moe_state_init(tcfg, device="cpu")
+    assert sorted(ts) == sorted(own) and ts["ema_loads"].dtype == torch.float32
+    assert torch.equal(ts["ema_loads"], own["ema_loads"])
+    tick = state_from_numpy({"tick": np.asarray(jstate["link"]["tick"])}, device="cpu")["tick"]
+    assert tick.shape == () and tick.dtype == torch.int32
     bf = state_from_numpy({"k": np.asarray(jnp.ones((2, 3), jnp.bfloat16))}, device="cpu")
     assert bf["k"].dtype == torch.bfloat16 and float(bf["k"].sum()) == 6.0
 
@@ -286,7 +368,7 @@ def test_scatter_combine_is_deterministic(dtype):
         tp = {k: v.requires_grad_(True) for k, v in params_from_numpy(p_np, device="cpu", dtype=dtype).items()}
         x = torch.from_numpy(x_np).to(dtype).requires_grad_(True)
         with t_use_flags(TFlags(moe_scatter_combine=True)), _FloatScatterAdds() as mode:
-            y, _, _ = tmoe.moe_apply(tp, x, cfg=tcfg, state=tmoe.moe_state_init(tcfg, tctx, device="cpu"), ctx=tctx)
+            y, _, _ = tmoe.moe_apply(tp, x, cfg=tcfg, state=tmoe.moe_state_init(tcfg, device="cpu"), ctx=tctx)
         grads = torch.autograd.grad(y, [x] + [tp[k] for k in sorted(tp)], torch.from_numpy(dy_np).to(dtype))
         return [y.detach()] + list(grads), mode.seen
 

@@ -82,7 +82,10 @@ from test_torch_train import (
     _batch,
     _flat_ref,
     _norm_err,
+    assert_links_match,
     assert_metrics_match,
+    flat_numpy,
+    without_links,
 )
 
 ARCH = "granite-moe-1b-a400m"
@@ -120,7 +123,7 @@ def _moe_run(groups, adaptive, steps=4):
     tp = params_from_numpy(p_np, device=CPU, dtype=torch.float32)
     jctx = jmoe.SpmdCtx(num_groups=groups, num_ep_shards=N_EP)
     tctx = tmoe.SpmdCtx(num_groups=groups, num_ep_shards=N_EP)
-    jstate, tstate = jmoe.moe_state_init(jcfg, jctx), tmoe.moe_state_init(tcfg, tctx, device=CPU)
+    jstate, tstate = jmoe.moe_state_init(jcfg, jctx), tmoe.moe_state_init(tcfg, device=CPU)
     jstep = jax.jit(lambda st, x: jmoe.moe_apply(jp, x, cfg=jcfg, state=st, ctx=jctx))
     rng = np.random.default_rng(100)
     ys = []
@@ -129,7 +132,7 @@ def _moe_run(groups, adaptive, steps=4):
         jy, jstate, jm = jstep(jstate, jnp.asarray(x))
         ty, tstate, tm = tmoe.moe_apply(tp, torch.from_numpy(x), cfg=tcfg, state=tstate, ctx=tctx)
         where = f"G {groups} step {step}"
-        _assert_state_equal(jstate, tstate, where)
+        _assert_state_equal(jstate, tstate, where, capacity_of=(tcfg, MOE_B * MOE_S // groups))
         for key in ("moe_dropped_frac", "moe_distribute_frac"):
             assert float(jm[key]) == float(tm[key]), (where, key)
         for key in ("moe_shard_imbalance", "moe_aux_loss"):
@@ -168,7 +171,7 @@ def test_each_kernel_launches_once_a_layer_whatever_g():
     ops = tmoe.DispatchOps(rec("gating", tmoe.PLAIN_OPS.gating), rec("histogram", tmoe.PLAIN_OPS.histogram),
                            rec("dispatch", tmoe.PLAIN_OPS.dispatch), tmoe.PLAIN_OPS.scan)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((MOE_B, MOE_S, MOE_D)).astype(np.float32))
-    tmoe.moe_apply(tp, x, cfg=tcfg, state=tmoe.moe_state_init(tcfg, ctx, device=CPU), ctx=ctx, ops=ops)
+    tmoe.moe_apply(tp, x, cfg=tcfg, state=tmoe.moe_state_init(tcfg, device=CPU), ctx=ctx, ops=ops)
     T = MOE_B * MOE_S
     _, c_buf = tmoe.capacities(tcfg, T // 4)
     E, k = tcfg.moe.num_experts, tcfg.moe.top_k
@@ -217,7 +220,7 @@ def test_model_loss_and_gradients_at_four_groups():
     batch = _batch(np.random.default_rng(1))
     jctx, tctx = jmoe.SpmdCtx(num_groups=GROUPS), tmoe.SpmdCtx(num_groups=GROUPS)
     jdk = jm.dyskew_init(jctx)
-    tdk = state_from_numpy(jax.tree.map(np.asarray, jdk), device=CPU)
+    tdk = state_from_numpy(without_links(jax.tree.map(np.asarray, jdk)), device=CPU)
 
     def jloss(p):
         return jm.loss(p, jax.tree.map(jnp.asarray, batch), dyskew=jdk, ctx=jctx)
@@ -235,8 +238,7 @@ def test_model_loss_and_gradients_at_four_groups():
         assert _norm_err(jflat[key], g.numpy()) <= 1e-3, key
     assert_metrics_match(jaux["metrics"], taux["metrics"], "Model.loss at G 4")
     assert float(taux["metrics"]["moe_dropped_frac"]) > 0.0
-    for key, a in _flat_ref(jaux["dyskew"]).items():
-        np.testing.assert_array_equal(a, dict(flatten_with_paths(taux["dyskew"]))[key].numpy(), err_msg=key)
+    assert_links_match(jaux["dyskew"], flat_numpy(taux["dyskew"]), "Model.loss at G 4")
 
 
 # --------------------------------------------------------------------- #
@@ -270,7 +272,7 @@ def reference():
     jctx = jmoe.SpmdCtx(num_groups=GROUPS)
     jstate = j_train_state_init(jm, jopt, jax.random.PRNGKey(1), ctx=jctx)
     steps = {nm: jax.jit(j_make_train_step(jm, jopt, JStep(num_microbatches=nm), ctx=jctx)) for nm in (1, 2)}
-    return steps, jstate, jax.tree.map(np.asarray, jstate)
+    return steps, jstate, without_links(jax.tree.map(np.asarray, jstate))
 
 
 @pytest.fixture(scope="module")
@@ -349,7 +351,7 @@ def test_four_ranks_match_the_reference_step(reference, four_ranks, nm, steps):
             else:
                 assert _norm_err(a, b) <= 2e-3, (where, key, _norm_err(a, b))
     _same_on_every_rank(states, f"nm {nm} after {steps} steps")
-    assert states[0]["dyskew/l0/link/tick"].tolist() == [steps * nm] * t_transformer.num_blocks(_cfg(t_get_config))
+    assert sorted(k for k in states[0] if k.startswith("dyskew/")) == ["dyskew/l0/ema_loads"]
 
 
 def test_allreduce_compressed_matches_reference(four_ranks):

@@ -38,6 +38,8 @@ from repro_torch.models.perf_flags import PerfFlags, use_flags
 from repro_torch.train.step import make_decode_step as t_make_decode_step
 from repro_torch.train.step import make_prefill_step as t_make_prefill_step
 
+from test_torch_train import without_links
+
 ARCH = "granite-moe-1b-a400m"
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BATCH, SEQ, DECODE = 2, 32, 3
@@ -100,12 +102,12 @@ def test_prefill_and_greedy_decode_match_the_reference(models):
 
 def test_forward_with_carried_link_state_matches_the_reference(models):
     """``transformer.forward(..., dyskew=...)``: logits, metrics and the new
-    link states, two calls in a row so that the second starts from carried
-    state."""
+    link states (``ema_loads``), two calls in a row so that the second
+    starts from carried state."""
     jm, tm, jparams, tparams = models
     jctx, tctx = JCtx(num_groups=1, num_ep_shards=N_EP), TCtx(num_groups=1, num_ep_shards=N_EP)
     jdk = jm.dyskew_init(jctx)
-    tdk = state_from_numpy(jax.tree.map(np.asarray, jdk), device="cpu")
+    tdk = state_from_numpy(without_links(jax.tree.map(np.asarray, jdk)), device="cpu")
     own = tm.dyskew_init(tctx, device="cpu")
     assert tree_leaves(jax.tree.map(lambda a: (a.shape, str(a.dtype)), own)) == \
            tree_leaves(jax.tree.map(lambda a: (a.shape, str(a.dtype)), tdk))
@@ -121,13 +123,9 @@ def test_forward_with_carried_link_state_matches_the_reference(models):
         for key in ("moe_dropped_frac", "moe_distribute_frac"):
             assert float(jaux["metrics"][key]) == float(taux["metrics"][key])
         jdk, tdk = jaux["dyskew"], taux["dyskew"]
-        for key in ("state", "strikes", "transitions", "tick"):
-            np.testing.assert_array_equal(
-                np.asarray(jdk["l0"]["link"][key]), tdk["l0"]["link"][key].numpy()
-            )
+        assert {k: sorted(v) for k, v in tdk.items()} == {"l0": ["ema_loads"]}
         np.testing.assert_allclose(np.asarray(jdk["l0"]["ema_loads"]),
                                    tdk["l0"]["ema_loads"].numpy(), rtol=1e-6)
-    assert tdk["l0"]["link"]["tick"].tolist() == [2, 2]
 
 
 def test_decode_matches_full_forward(models):

@@ -53,8 +53,8 @@ sliced product adds its partial sums in another order, well inside them):
     the leaf's band;
   * train steps: losses rtol 1e-5, ``grad_norm`` rtol 1e-4, ``lr`` and the
     routing metrics EQUAL, parameters and moments as in
-    ``tests/test_torch_expert_parallel.py``, link states EQUAL and the same
-    bits on every rank;
+    ``tests/test_torch_expert_parallel.py``, ``ema_loads`` as there and the
+    same bits on every rank;
   * checkpoint: EQUAL (bit for bit);
   * collective records: EQUAL to the bytes issued.
 """
@@ -90,7 +90,7 @@ from repro_torch.train.step import train_state_axes, train_state_init
 import torch_tp_worker as worker
 from test_torch_arch import GRAD_TOL, _params, _reduced, assert_logits
 from test_torch_expert_parallel import _assert_train_state, _id, _ranks
-from test_torch_train import ZERO_INIT, _flat_ref, _norm_err, _with_values, assert_metrics_match
+from test_torch_train import ZERO_INIT, _flat_ref, _norm_err, _with_values, assert_metrics_match, without_links
 
 CPU = "cpu"
 MESHES = ((1, 2), (1, 4), (2, 2))
@@ -214,7 +214,7 @@ def train_reference():
         jm = j_build(_reduced(j_get_config, name))
         jctx = _jctx(jm.cfg, mesh)
         state = _with_values(j_train_state_init(jm, jopt, jax.random.PRNGKey(1), ctx=jctx), ZERO_INIT + ("bias",))
-        init = jax.tree.map(np.asarray, state)
+        init = without_links(jax.tree.map(np.asarray, state))
         batches = _batches(jm.cfg, 20, STEPS)
         step = jax.jit(j_make_train_step(jm, jopt, JStep(), ctx=jctx))
         runs = []
@@ -227,7 +227,7 @@ def train_reference():
         jm = j_build(_reduced(j_get_config, name))
         jctx = _jctx(jm.cfg, (1, 2))
         state = j_train_state_init(jm, jopt, jax.random.PRNGKey(1), ctx=jctx)
-        init = jax.tree.map(np.asarray, state)
+        init = without_links(jax.tree.map(np.asarray, state))
         batch = _batches(jm.cfg, 30, 1)
         state, met = jax.jit(j_make_train_step(jm, jopt, JStep(), ctx=jctx))(state, jax.tree.map(jnp.asarray, batch[0]))
         out[name, "adafactor"] = {"init": init, "batches": batch, "runs": [(_flat_ref(state), met)]}
@@ -460,7 +460,7 @@ def test_control_without_to_shard(family_reference, meshes):
 @pytest.mark.parametrize("name,mesh", TRAINED, ids=[f"{n}-{_id(m)}" for n, m in TRAINED])
 def test_train_steps_match_reference(train_reference, meshes, name, mesh):
     """Two AdamW steps on every rank against the reference's jitted step on
-    the global batch; link states the same bits on every rank."""
+    the global batch; ``ema_loads`` the same bits on every rank."""
     ref = train_reference[name, mesh]
     _, res = meshes[mesh]
     _, opt = _opt()
@@ -514,9 +514,8 @@ def test_adafactor_step_with_sliced_factored_axes(train_reference, mesh_1x2, nam
 def test_checkpoint_restores_on_another_mesh(mesh_1x2, mesh_1x4):
     """Written at (1, 2): the file holds whole leaves (each sliced leaf's
     two slices joined along its own axis); it restores bit for bit at
-    (1, 2), at (1, 4) as each rank's slices and in one process.  Link
-    leaves of another shard count start afresh; ``ema_loads`` comes
-    back."""
+    (1, 2), at (1, 4) as each rank's slices and in one process,
+    ``ema_loads`` too."""
     job, res12 = mesh_1x2
     _, opt = _opt()
     cfg = _reduced(t_get_config, GRANITE)
@@ -529,19 +528,17 @@ def test_checkpoint_restores_on_another_mesh(mesh_1x2, mesh_1x4):
              for k in saved[0]}
     assert {k.split("/")[-1] for k in axes2} >= {"wq", "wo", "wk", "table", "w_gate"}
 
-    def same(got, model, m, where, links):
+    def same(got, model, m, where):
         axes = _axes(cfg, model, opt)
         assert sorted(got) == sorted(whole), where
         for key, a in whole.items():
-            if key.startswith("dyskew/") and not key.endswith("ema_loads") and not links:
-                continue
             np.testing.assert_array_equal(got[key], _slice(a, key, axes, m, model), err_msg=f"{where}: {key}")
 
     for r, _, m in _ranks((1, 4)):
-        same(mesh_1x4[1][r]["restore_checkpoint"]["restored"], 4, m, f"1x4 rank {r}", links=False)
+        same(mesh_1x4[1][r]["restore_checkpoint"]["restored"], 4, m, f"1x4 rank {r}")
     like = train_state_init(t_build(cfg), opt, torch.Generator().manual_seed(5), device=CPU)
     one = {k: v.numpy() for k, v in flatten_with_paths(CheckpointManager(job["save_checkpoint"]["dir"]).restore(like))}
-    same(one, 1, 0, "one process", links=False)
+    same(one, 1, 0, "one process")
 
 
 # --------------------------------------------------------------------- #

@@ -77,7 +77,7 @@ def _profiled(fn, model):
 
 def test_a_profiled_train_step_emits_the_step_layer_and_link_spans(model):
     _, spans = _profiled(_train, model)
-    # Remat's recompute runs each layer a second time, the link's tick too.
+    # Remat's recompute runs each layer a second time, the link too.
     assert spans == {"dyskew.step.forward": 1, "dyskew.step.backward": 1, "dyskew.step.optimizer": 1,
                      "dyskew.attn": 2 * LAYERS, "dyskew.moe": 2 * LAYERS, "dyskew.moe.link": 2 * LAYERS,
                      "dyskew.head": 1}
@@ -86,10 +86,9 @@ def test_a_profiled_train_step_emits_the_step_layer_and_link_spans(model):
 def test_profiled_serving_emits_the_layer_spans(model):
     _, spans = _profiled(_serve, model)
     calls = 3
-    # A stateless caller's fresh link state and the tick: two link ranges
-    # a layer and call.
+    # One link range a layer and call, a stateless caller's too.
     assert spans == {"dyskew.attn": calls * LAYERS, "dyskew.moe": calls * LAYERS,
-                     "dyskew.moe.link": 2 * calls * LAYERS, "dyskew.head": calls}
+                     "dyskew.moe.link": calls * LAYERS, "dyskew.head": calls}
 
 
 def test_a_backward_runs_on_the_calling_thread_only_while_profiled():

@@ -89,11 +89,35 @@ def _batch(rng, vocab=256):
     return {"tokens": tokens, "targets": targets}
 
 
+def without_links(tree):
+    """``repro``'s tree without the MoE layers' link state machines (each
+    ``dyskew/l<j>/link``): the port carries ``ema_loads`` alone, its link
+    decision being a constant of the configuration
+    (``test_torch_moe.py::test_moe_link_decides_from_its_first_tick``)."""
+    if isinstance(tree, dict):
+        return {k: without_links(v) for k, v in tree.items() if k != "link"}
+    return tree
+
+
 def _flat_ref(tree):
+    """``repro``'s leaves by path as numpy, ``without_links``."""
     out = {}
-    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+    for path, leaf in jax.tree_util.tree_flatten_with_path(without_links(tree))[0]:
         out["/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)] = np.asarray(leaf)
     return out
+
+
+def flat_numpy(tree):
+    return {k: v.detach().numpy() for k, v in flatten_with_paths(tree)}
+
+
+def assert_links_match(jdyskew, tflat, where):
+    """The port's carried link states (numpy by path) against the
+    reference's ``without_links``: the same keys, the same bits."""
+    jflat = _flat_ref(jdyskew)
+    assert sorted(tflat) == sorted(jflat), where
+    for key, b in tflat.items():
+        np.testing.assert_array_equal(b, jflat[key], err_msg=f"{where}: {key}")
 
 
 def _norm_err(ref, got):
@@ -103,7 +127,7 @@ def _norm_err(ref, got):
 def assert_state_matches(jstate, tstate, where):
     """Train states leaf by leaf at the module's tolerances."""
     jflat = _flat_ref(jstate)
-    tflat = {k: v.detach().numpy() for k, v in flatten_with_paths(tstate)}
+    tflat = flat_numpy(tstate)
     assert sorted(jflat) == sorted(tflat), where
     for key, a in jflat.items():
         b = tflat[key]
@@ -163,7 +187,7 @@ class TestLoss:
         jm, tm, jparams, tparams = models
         batch = _batch(np.random.default_rng(1))
         jdk = jm.dyskew_init()
-        tdk = state_from_numpy(jax.tree.map(np.asarray, jdk), device=CPU)
+        tdk = state_from_numpy(without_links(jax.tree.map(np.asarray, jdk)), device=CPU)
 
         def jloss(p):
             return jm.loss(p, jax.tree.map(jnp.asarray, batch), dyskew=jdk)
@@ -185,8 +209,7 @@ class TestLoss:
         for (key, _), g in zip(flat, tgrads):
             assert _norm_err(jflat[key], g.numpy()) <= GRAD_TOL, key
         assert_metrics_match(jaux["metrics"], taux["metrics"], "Model.loss")
-        for key, a in _flat_ref(jaux["dyskew"]).items():
-            np.testing.assert_array_equal(a, dict(flatten_with_paths(taux["dyskew"]))[key].numpy(), err_msg=key)
+        assert_links_match(jaux["dyskew"], flat_numpy(taux["dyskew"]), "Model.loss")
 
 
 # --------------------------------------------------------------------- #
@@ -212,7 +235,7 @@ def _run_steps(models, opt_name, steps, microbatches=1, seed=2, noisy=()):
     jopt = JOpt(name=opt_name, warmup_steps=2, total_steps=20)
     topt = OptimizerConfig(name=opt_name, warmup_steps=2, total_steps=20)
     jstate = _with_values(j_train_state_init(jm, jopt, jax.random.PRNGKey(1)), noisy)
-    tstate = state_from_numpy(jax.tree.map(np.asarray, jstate), device=CPU)
+    tstate = state_from_numpy(without_links(jax.tree.map(np.asarray, jstate)), device=CPU)
     jstep = jax.jit(j_make_train_step(jm, jopt, JStep(num_microbatches=microbatches)))
     tstep = make_train_step(tm, topt, StepConfig(num_microbatches=microbatches))
     rng = np.random.default_rng(seed)
@@ -242,13 +265,16 @@ class TestTrainStep:
         assert any("/mamba/" in k for k, _ in flatten_with_paths(state["params"]))
 
     def test_microbatches_match_reference(self, models):
-        """Two microbatches a step: float32 accumulation, one link tick a
-        microbatch (the link's tick counter reads 2 a step)."""
+        """Two microbatches a step: float32 accumulation, and ``ema_loads``
+        advanced once a microbatch, as the reference advances it (the
+        states matched above), the only state the links carry."""
         state = _run_steps(models, "adamw", 2, microbatches=2)
-        assert state["dyskew"]["l0"]["link"]["tick"].tolist() == [4] * t_transformer.num_blocks(models[1].cfg)
+        assert {k: sorted(v) for k, v in state["dyskew"].items()} == {"l0": ["ema_loads"]}
+        uniform = torch.full_like(state["dyskew"]["l0"]["ema_loads"], 1.0 / models[1].cfg.moe.num_experts)
+        assert not torch.equal(state["dyskew"]["l0"]["ema_loads"], uniform)
 
     def test_remat_on_equals_off(self, models):
-        """``torch.utils.checkpoint`` recomputes each block (its link tick
+        """``torch.utils.checkpoint`` recomputes each block (its link's EMA
         included) from the same inputs: gradients, new link states and
         metrics are bit for bit those of the plain backward."""
         _, _, _, tparams = models
@@ -266,7 +292,8 @@ class TestTrainStep:
         assert all(torch.equal(a, b) for a, b in zip(g1, g2))
         for (k, a), (_, b) in zip(flatten_with_paths(a1["dyskew"]), flatten_with_paths(a2["dyskew"])):
             assert torch.equal(a, b), k
-        assert a1["dyskew"]["l0"]["link"]["tick"].tolist() == [1] * t_transformer.num_blocks(tm.cfg)
+        assert sorted(a1["dyskew"]["l0"]) == ["ema_loads"]
+        assert a1["dyskew"]["l0"]["ema_loads"].shape == (t_transformer.num_blocks(tm.cfg), tm.cfg.moe.num_experts)
 
 
 # --------------------------------------------------------------------- #

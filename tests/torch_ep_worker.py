@@ -106,7 +106,7 @@ class _Recording:
 def moe_cases(mesh, job):
     """``moe_apply`` over ``job["steps"]`` carried steps for each case of
     ``job["cases"]`` ((groups, adaptive, scatter)), on this rank's rows of
-    each global input: y, the link state and the metrics after every
+    each global input: y, the carried state and the metrics after every
     step, and the dispatch steps' calls of the first."""
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.models.layers import moe
@@ -117,7 +117,7 @@ def moe_cases(mesh, job):
         cfg = job["cfgs"][adaptive]
         ctx = _ctx(mesh, groups)
         p = params_from_numpy(_sliced(mesh, job["params"], moe.moe_specs(cfg)), device="cpu")
-        state = moe.moe_state_init(cfg, ctx, device="cpu")
+        state = moe.moe_state_init(cfg, device="cpu")
         rec = _Recording()
         steps = []
         for i, x in enumerate(job["xs"]):
@@ -298,7 +298,7 @@ def raises(mesh, job):
     x = torch.zeros((2, 4, cfg.d_model))
     p = {k: torch.zeros(s.shape) for k, s in moe.moe_specs(odd).items()}
     try:
-        moe.moe_apply(p, x, cfg=odd, state=moe.moe_state_init(odd, _ctx(mesh, 1), "cpu"), ctx=_ctx(mesh, 1))
+        moe.moe_apply(p, x, cfg=odd, state=moe.moe_state_init(odd, "cpu"), ctx=_ctx(mesh, 1))
     except ValueError as e:
         out["experts"] = str(e)
     return out
