@@ -176,6 +176,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -201,6 +202,7 @@ REPLACES = {
                           "repro differentiates this lax.scan)",
     "moe_combine": "src/repro/models/layers/moe.py moe_apply (no Pallas kernel: XLA's gathers)",
     "moe_combine_bwd": "src/repro/models/layers/moe.py moe_apply (no Pallas kernel: autodiff of XLA's gathers)",
+    "attention": "none: repro's chunked attention is XLA's (src/repro/models/layers/attention.py)",
 }
 SOURCES = {
     "topk_gating": "src/repro_torch/kernels/csrc/topk_gating.cu",
@@ -210,6 +212,7 @@ SOURCES = {
     "ssd_state_scan_bwd": "src/repro_torch/kernels/csrc/ssd_state_scan.cu",
     "moe_combine": "src/repro_torch/kernels/csrc/combine.cu",
     "moe_combine_bwd": "src/repro_torch/kernels/csrc/combine.cu",
+    "attention": "src/repro_torch/kernels/csrc/attention.cu",
 }
 
 # The device kernels of csrc/, as the profiler names them.
@@ -217,7 +220,7 @@ PORT_KERNEL_NAMES = (
     "topk_gating_group_kernel", "topk_gating_warp_kernel", "histogram_block_kernel",
     "histogram_cluster_kernel", "dispatch_gather_kernel", "dispatch_bytes_kernel",
     "ssd_scan_vec_kernel", "ssd_scan_scalar_kernel", "ssd_scan_bwd_kernel", "ssd_scan_bwd_decay_kernel",
-    "moe_combine_fwd_kernel", "moe_combine_bwd_kernel",
+    "moe_combine_fwd_kernel", "moe_combine_bwd_kernel", "attention_fwd_kernel",
 )
 
 
@@ -907,6 +910,123 @@ def combine_checks(torch, gen):
     return cases
 
 
+#: (name, B, Sq, H, K, hd, S_cache, q_offset, kv_len, causal, timed): the
+#: attention kernel at granite's served prefill (64 prompts of 1,024 into a
+#: cache of 1,088) and at head width 128 (pixtral-12b's 8 x 1,024 prefill,
+#: 32 heads over 8), timed; then the other served shapes and ragged ones.
+ATTENTION_CASES = (
+    ("granite_prefill", 64, 1024, 16, 8, 64, 1088, 0, 1024, True, True),
+    ("hd128_G4", 8, 1024, 32, 8, 128, 1024, 0, 1024, True, True),
+    ("whisper_encoder", 8, 1500, 8, 8, 64, 1500, 0, 1500, False, False),
+    ("whisper_cross", 8, 224, 8, 8, 64, 1500, 0, 1500, False, False),
+    ("kimi_prefill_G8", 8, 1024, 64, 8, 128, 1056, 0, 1024, True, False),
+    ("ragged_offset_37", 3, 301, 12, 4, 64, 400, 37, 338, True, False),
+    ("ragged_hd128_G12", 2, 77, 24, 2, 128, 100, 5, 82, True, False),
+    ("full_ragged_kv", 2, 130, 6, 3, 128, 300, 0, 211, False, False),
+    ("Sq1", 2, 1, 8, 2, 128, 50, 20, 21, True, False),
+    ("Sq_past_kv_len", 2, 40, 4, 2, 64, 64, 30, 50, True, False),
+)
+def attention_case(torch, name, q, k, v, causal, q_offset, kv_len, timed):
+    """The attention kernel against the plain version (``attention/ref.py``),
+    element by element within ``ref.band`` (the two round their
+    probabilities and outputs at different points), and run twice for the
+    same bits; its largest gap from ``chunked_attention`` (the path the port
+    ran before, which rounds its scores too) is printed, not checked.
+    Timed: the kernel, both of them, and ``F.scaled_dot_product_attention``
+    as the library's yardstick (the port never calls it), against the
+    larger of the products' time at the bf16 peak and the bytes' at the
+    HBM rate (``kernel_cost.attention``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention.kernel import attention_fwd
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.attention.ref import band as attention_band
+    from repro_torch.models.layers.attention import chunked_attention
+    from repro_torch.roofline import hw, kernel_cost
+
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+
+    def chunked():
+        return chunked_attention(q.reshape(B, Sq, K, H // K, hd), k, v, causal=causal, q_offset=q_offset,
+                                 kv_len=kv_len).reshape(B, Sq, H, hd)
+
+    def kernel():
+        return attention_fwd(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+    def plain():
+        return attention_ref(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+    got = kernel()
+    # The cache past kv_len may hold anything: the kernel never reads it.
+    junk_k, junk_v = k.clone(), v.clone()
+    junk_k[:, kv_len:] = float("nan")
+    junk_v[:, kv_len:] = float("inf")
+    again = attention_fwd(q, junk_k, junk_v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    torch.cuda.synchronize()
+    check(got.shape == q.shape and got.dtype == q.dtype and got.is_contiguous(), f"attention {name}: out")
+    check(bool(torch.isfinite(got.float()).all()), f"attention {name}: out not finite")
+    check(same_bits(torch, got, again), f"attention {name}: two runs differ, the second with NaN past kv_len")
+    del again, junk_k, junk_v
+    want = plain()
+    band = attention_band(q, k, v, want, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    gap = (got.float() - want.float()).abs()
+    share = float((gap / band).max())
+    check(share <= 1.0, f"attention {name}: a gap {share} times its band off the plain version")
+    late = band[:, Sq // 2:]
+    row = {"kernel": "attention", "case": name, "shape": [B, Sq, H, K, hd, k.shape[1]],
+           "dtype": str(q.dtype).replace("torch.", ""), "causal": causal, "q_offset": q_offset,
+           "kv_len": kv_len, "runs_equal": True, "max_abs_err": float(gap.max()), "band_share": share,
+           "band_max": float(band.max()), "band_median_late_rows": float(late.median()),
+           "chunked_max_abs_err": float((got.float() - chunked().float()).abs().max())}
+    del got, want, band, gap, late
+    torch.cuda.empty_cache()
+    if timed:
+        cost = kernel_cost.attention(q, k, causal, q_offset, kv_len)
+        by_ops, by_bytes = cost.flops / hw.PEAK_FLOPS_BF16 * 1e3, cost.bytes / hw.HBM_BW * 1e3
+        # SDPA's layout, made once outside the timed calls; its causal mask
+        # is the top-left one, which is this case's where q_offset is 0 and
+        # the keys are the queries.
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t[:, :kv_len].transpose(1, 2).contiguous() for t in (k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        row.update(kernel_ms=time_ms(torch, kernel), host_ms=host_ms(torch, kernel, iters=50),
+                   plain_ms=time_ms(torch, plain, iters=2, reps=3, warmup=1),
+                   chunked_ms=time_ms(torch, chunked, iters=2, reps=3, warmup=1),
+                   library_ms=time_ms(torch, library) if q_offset == 0 and Sq == kv_len else None,
+                   flops=cost.flops, bytes=cost.bytes, bound_ms=max(by_ops, by_bytes),
+                   bound_by="operations" if by_ops >= by_bytes else "bytes")
+        row["tflops"] = cost.flops / (row["kernel_ms"] * 1e-3) / 1e12
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        del qt, kt, vt
+        torch.cuda.empty_cache()
+    return row
+
+
+def attention_checks(torch, gen):
+    """The attention kernel at ATTENTION_CASES' shapes in bf16, then fp16,
+    and q read through strides that are not the contiguous ones."""
+    cases = []
+    for name, B, Sq, H, K, hd, S_cache, q_offset, kv_len, causal, timed in ATTENTION_CASES:
+        q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((B, S_cache, K, hd), generator=gen, device="cuda").bfloat16() for _ in range(2))
+        cases.append(attention_case(torch, name, q, k, v, causal, q_offset, kv_len, timed))
+        del q, k, v
+        torch.cuda.empty_cache()
+    q, k, v = (torch.randn((2, 200, 4, 64), generator=gen, device="cuda").half() for _ in range(3))
+    cases.append(attention_case(torch, "fp16_G1", q, k, v, True, 0, 200, False))
+    # q as a slice of a wider (B, S, 3, H, hd) buffer: read through its strides.
+    wide = torch.randn((2, 150, 3, 8, 64), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((2, 150, 2, 64), generator=gen, device="cuda").bfloat16() for _ in range(2))
+    cases.append(attention_case(torch, "strided_q", wide[:, :, 1], k, v, True, 0, 150, False))
+    del q, k, v, wide
+    torch.cuda.empty_cache()
+    return cases
+
+
 def phase_kernel_checks(torch):
     from repro_torch.kernels.dispatch.kernel import WARPS_PER_BLOCK, launch_blocks
     from repro_torch.kernels.histogram.kernel import SINGLE_BLOCK_MAX
@@ -1069,6 +1189,7 @@ def phase_kernel_checks(torch):
     torch.cuda.empty_cache()
 
     cases += combine_checks(torch, gen)
+    cases += attention_checks(torch, gen)
     torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "cases": cases})
     return cases
@@ -1289,11 +1410,30 @@ def served_model(torch, arch, layers=None, prompt=PREFILL_LEN, ctx=None):
     return model, ctx, params, inputs, make_prefill_step(model, ctx), make_decode_step(model, ctx)
 
 
+def attention_launches(cfg) -> int:
+    """Launches of the attention kernel in one prefill: one an attention
+    call where the kernel takes the config (bf16 or fp16, head width 64 or
+    128): every attention layer of a decoder, the encoder's layers and the
+    decoder's self- and cross-attention of an encoder-decoder; none for the
+    cached layers of an int8 cache.  Decode steps make none."""
+    from repro_torch.kernels.attention.kernel import DTYPES, HEAD_DIMS
+    from repro_torch.models import transformer
+
+    if transformer.model_dtype(cfg) not in DTYPES or cfg.head_dim_ not in HEAD_DIMS:
+        return 0
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    if cfg.kv_cache_dtype == "int8":
+        return 0
+    return len(transformer.attn_layer_positions(cfg)) * transformer.num_blocks(cfg)
+
+
 def expected_launches(cfg, steps=DECODE_STEPS):
     """Launches of each kernel in one prefill and ``steps`` decode steps:
     the MoE kernels (the combine among them) once per MoE layer and step,
     the scan once per Mamba layer and prefill (decode is the recurrent
-    update, with no scan); no backward."""
+    update, with no scan), the attention kernel as ``attention_launches``;
+    no backward."""
     from repro_torch.models import transformer
 
     nb = transformer.num_blocks(cfg)
@@ -1301,7 +1441,8 @@ def expected_launches(cfg, steps=DECODE_STEPS):
     n_mamba = len(transformer.mamba_layer_positions(cfg)) * nb
     moe = n_moe * (1 + steps)
     return {"topk_gating": moe, "load_histogram": moe, "dispatch_gather": moe,
-            "ssd_state_scan": n_mamba, "ssd_state_scan_bwd": 0, "moe_combine": moe, "moe_combine_bwd": 0}
+            "ssd_state_scan": n_mamba, "ssd_state_scan_bwd": 0, "moe_combine": moe, "moe_combine_bwd": 0,
+            "attention": attention_launches(cfg)}
 
 
 def host_steps(before):
@@ -2801,7 +2942,7 @@ def phase_train(torch, card="cuda", profile=False):
     n_moe = len(transformer.moe_layer_positions(cfg)) * transformer.num_blocks(cfg)
     want = {"topk_gating": 2 * n_moe * TRAIN_STEPS, "load_histogram": 2 * n_moe * TRAIN_STEPS,
             "dispatch_gather": 2 * n_moe * TRAIN_STEPS, "ssd_state_scan": 0, "ssd_state_scan_bwd": 0,
-            "moe_combine": 2 * n_moe * TRAIN_STEPS, "moe_combine_bwd": n_moe * TRAIN_STEPS}
+            "moe_combine": 2 * n_moe * TRAIN_STEPS, "moe_combine_bwd": n_moe * TRAIN_STEPS, "attention": 0}
     out, counts, loop_row = counted_loop(torch, cfg, data_cfg, opt_cfg, card, want)
     hist = out["history"]
     row.update(loop_row, moe_dropped_frac=[h["moe_dropped_frac"] for h in hist],
@@ -2988,7 +3129,7 @@ def phase_train_mamba(torch, card="cuda", profile=False):
     # ---- 4 bf16 steps through the loop: the counted main path -------- #
     want = {"topk_gating": 0, "load_histogram": 0, "dispatch_gather": 0,
             "ssd_state_scan": 2 * n_mamba * TRAIN_STEPS, "ssd_state_scan_bwd": n_mamba * TRAIN_STEPS,
-            "moe_combine": 0, "moe_combine_bwd": 0}
+            "moe_combine": 0, "moe_combine_bwd": 0, "attention": 0}
     out, counts, loop_row = counted_loop(torch, cfg, data_cfg, opt_cfg, card, want)
     row.update(loop_row)
     state = out["state"]
@@ -5006,7 +5147,7 @@ PEAK_BAND = (0.9, 1.2)
 #: Timed calls of each step (the median is its time), decode steps timed.
 ROOFLINE_TIMED, ROOFLINE_DECODES = 3, 8
 KERNEL_NAMES = ("topk_gating", "load_histogram", "dispatch_gather", "ssd_state_scan", "ssd_state_scan_bwd",
-                "moe_combine", "moe_combine_bwd")
+                "moe_combine", "moe_combine_bwd", "attention")
 
 
 def as_meta(torch, tree):
@@ -5306,7 +5447,7 @@ def run_phases(torch, args, smi, pending, t_script) -> int:
         # Each model's counts are read from its own serve run: the MoE
         # kernels from granite's, the scan from mamba2's.
         for arch, kernels_of_path in ((MOE_ARCH, ("topk_gating", "load_histogram", "dispatch_gather",
-                                                  "moe_combine")),
+                                                  "moe_combine", "attention")),
                                       (SSM_ARCH, ("ssd_state_scan",))):
             served = served_model(torch, arch)
             got, row, run = phase_serve(torch, served)
@@ -5337,7 +5478,7 @@ def run_phases(torch, args, smi, pending, t_script) -> int:
     prefill_case = {"topk_gating": "prefill_bf16", "load_histogram": "prefill",
                     "dispatch_gather": "prefill_bf16", "ssd_state_scan": "prefill_f32",
                     "ssd_state_scan_bwd": "train_f32", "moe_combine": "train_bf16",
-                    "moe_combine_bwd": "train_bf16"}
+                    "moe_combine_bwd": "train_bf16", "attention": "granite_prefill"}
     for kname, case_name in prefill_case.items():
         mine = [c for c in cases if c["kernel"] == kname]
         c = next(c for c in mine if c["case"] == case_name)
@@ -5358,6 +5499,12 @@ def run_phases(torch, args, smi, pending, t_script) -> int:
             # The op counter's shape-only record (every slot filled) beside
             # the plan-aware bytes of ``bound_ms``.
             rows[-1].update(shape_bytes=c["shape_bytes"], shape_bound_ms=c["shape_bound_ms"])
+        if kname == "attention":
+            # The tensor cores' bound, the path it replaced, and head width 128.
+            rows[-1].update(flops=c["flops"], chunked_ms=c["chunked_ms"],
+                            hd128={k: mine_c[k] for mine_c in mine if mine_c["case"] == "hd128_G4" for k in (
+                                "shape", "kernel_ms", "plain_ms", "chunked_ms", "bound_ms", "bound_by",
+                                "library_ms", "host_ms", "bytes", "flops")})
         if kname == "ssd_state_scan_bwd":
             # max_abs_err is d_decay's; d_states equals the plain version.
             rows[-1].update(d_states_equal=all(m["d_states_equal"] for m in mine),

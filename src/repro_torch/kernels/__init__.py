@@ -7,6 +7,8 @@ combine      — the MoE combine: each token's kept picks' expert outputs,
                weighted and summed, and its backward (training)
 ssd_scan     — Mamba-2 inter-chunk state scan (every Mamba layer's prefill
                and training forward) and its backward (training)
+attention    — softmax attention's forward for a call that needs no
+               gradient (a served prefill, an encoder), scores in registers
 
 Each kernel ships kernel.py (the CUDA launch wrapper, which counts its
 launches), ref.py (the plain PyTorch version) and ops.py (CUDA tensor →
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels.attention import kernel as _attention
 from repro_torch.kernels.combine import kernel as _combine
 from repro_torch.kernels.combine import kernel_bwd as _combine_bwd
 from repro_torch.kernels.dispatch import kernel as _dispatch
@@ -37,6 +40,7 @@ _MODULES = {
     "ssd_state_scan_bwd": _ssd_scan_bwd,
     "moe_combine": _combine,
     "moe_combine_bwd": _combine_bwd,
+    "attention": _attention,
 }
 
 
@@ -50,6 +54,7 @@ DEVICE_KERNELS = {
     "ssd_state_scan_bwd": ("ssd_scan_bwd_kernel",),
     "moe_combine": ("moe_combine_fwd_kernel",),
     "moe_combine_bwd": ("moe_combine_bwd_kernel",),
+    "attention": ("attention_fwd_kernel",),
 }
 
 

@@ -65,6 +65,11 @@ _SIGNATURES = {
         _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, _c_ptr,
     ),
+    "dyskew_attention_fwd": (
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, *(ctypes.c_longlong,) * 9, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, _c_ptr,
+    ),
     "dyskew_ssd_state_scan_bwd": (
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _c_ptr,

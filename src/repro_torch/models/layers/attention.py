@@ -1,9 +1,14 @@
 """Grouped-query attention with a chunked softmax and a KV cache.
 
-The prefill path walks the queries in chunks, which bounds the float32
-score matrix to (q_chunk × Skv) per head; the matrix products go to
-``torch.einsum`` as ``repro`` leaves them to its compiler.  Decode attends
-a single query step against the cache.
+A call of more than one query that needs no gradient, with k and v in
+bf16 or fp16 and a head width of 64 or 128, goes on the card to the
+hand-written attention kernel (``kernels/attention``: the scores stay in
+registers).  Every other call of more than one query walks the queries in
+chunks (``chunked_attention``), which bounds the float32 score matrix to
+(q_chunk × Skv) per head; its matrix products go to ``torch.einsum`` as
+``repro`` leaves them to its compiler: training, whose q, k and v need a
+gradient; CPU tensors; int8 caches; float32 calls.  Decode attends a
+single query step against the cache.
 
 Under a model group (``group``) the layers hold what the rule table gives a
 rank, and tell it from their leaves' shapes against the config's: a rank's
@@ -26,9 +31,12 @@ import torch
 
 from repro_torch import distributed
 from repro_torch.config.base import ArchConfig
+from repro_torch.kernels.attention import ops as attention_ops
+from repro_torch.kernels.attention.kernel import attention_fwd
 from repro_torch.models.layers.basic import act, apply_rope
 from repro_torch.models.param import spec
 from repro_torch.models.perf_flags import get_flags
+from repro_torch.roofline import kernel_cost, op_cost
 
 NEG_INF = -1e30
 
@@ -160,6 +168,32 @@ def chunked_attention(
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, q_offset: int = 0,
+            kv_len: Optional[int] = None, q_chunk: int = 512, k_scale: Optional[torch.Tensor] = None,
+            v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The attention core of a call of more than one query: q (B, S, H, hd),
+    k and v (B, Skv, K, hd) → (B, S, H, hd).  A call the kernel takes
+    (``attention_ops.takes``) off the CPU is the kernel's, counted as its
+    record by an active ``op_cost.OpCounter``: on the card it launches, on
+    ``meta`` ``chunked_attention`` stands in.  Every other call takes
+    ``chunked_attention``."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+
+    def chunked(**kw):
+        out = chunked_attention(q.reshape(B, S, K, H // K, hd), k, v, causal=causal, q_offset=q_offset,
+                                kv_len=kv_len, q_chunk=q_chunk, **kw)
+        return out.reshape(B, S, H, hd)
+
+    if q.device.type == "cpu" or not attention_ops.takes(q, k, v):
+        return chunked(k_scale=k_scale, v_scale=v_scale)
+    n_kv = k.shape[1] if kv_len is None else kv_len
+    with op_cost.kernel(kernel_cost.attention, q, k, causal, q_offset, n_kv):
+        if q.is_cuda:
+            return attention_fwd(q, k, v, causal=causal, q_offset=q_offset, kv_len=n_kv)
+        return chunked()
+
+
 def decode_attention(
     q: torch.Tensor,             # (B, 1, K, G, hd)
     k_cache: torch.Tensor,       # (B, S, K, hd) — model dtype or int8
@@ -240,8 +274,6 @@ def attention_apply(
         q = apply_rope(q, pos_b, cfg.rope_theta, cfg.rope_style)
         k = apply_rope(k, pos_b, cfg.rope_theta, cfg.rope_style)
 
-    qg = q.reshape(B, S, K, G, hd)
-
     new_cache = None
     if cache is not None:
         idx = cache_index if cache_index is not None else 0
@@ -270,17 +302,14 @@ def attention_apply(
         new_cache = dict(cache)
         k_cache, v_cache = cache["k"], cache["v"]
         if S == 1:
-            out = decode_attention(qg, k_cache, v_cache, end,
-                                   k_scale=k_scale, v_scale=v_scale)
+            out = decode_attention(q.reshape(B, S, K, G, hd), k_cache, v_cache, end,
+                                   k_scale=k_scale, v_scale=v_scale).reshape(B, S, H, hd)
         else:
-            out = chunked_attention(
-                qg, k_cache, v_cache, causal=causal, q_offset=idx,
-                kv_len=end, q_chunk=q_chunk, k_scale=k_scale, v_scale=v_scale,
-            )
+            out = _attend(q, k_cache, v_cache, causal=causal, q_offset=idx, kv_len=end,
+                          q_chunk=q_chunk, k_scale=k_scale, v_scale=v_scale)
     else:
-        out = chunked_attention(qg, k, v, causal=causal, q_chunk=q_chunk)
+        out = _attend(q, k, v, causal=causal, q_chunk=q_chunk)
 
-    out = out.reshape(B, S, H, hd)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return (distributed.sum_shards(y, group) if sliced else y), new_cache
 

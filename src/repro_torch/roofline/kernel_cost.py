@@ -90,3 +90,24 @@ def moe_combine_bwd(y_flat: torch.Tensor, slot_tk: torch.Tensor) -> KernelCost:
     row = d * y_flat.element_size()
     return KernelCost("moe_combine_bwd", 3 * T * k * d,
                       T * row + T * k * row + S * row + 12 * T * k + S)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int, kv_len: int) -> KernelCost:
+    """The attention forward over the pairs of a query and a key it keeps
+    (keys below ``kv_len``, and where causal none past the query's
+    position): the score and the value products, 2 · hd FLOPs each a pair
+    and head (the softmax's few operations a pair are not counted).  q read
+    and the output written once; of k and v the keys some query keeps, read
+    once for the heads that share them."""
+    B, Sq, H, hd = q.shape
+    K, e = k.shape[2], q.element_size()
+    if causal:
+        # Query i keeps min(kv_len, q_offset + i + 1) keys.
+        lo, hi = q_offset + 1, q_offset + Sq
+        c = min(max(kv_len, lo - 1), hi)
+        pairs = (lo + c) * (c - lo + 1) // 2 + (hi - c) * kv_len
+        n_kv = min(kv_len, hi)
+    else:
+        pairs, n_kv = Sq * kv_len, kv_len
+    return KernelCost("attention", 4 * B * H * hd * pairs,
+                      2 * B * Sq * H * hd * e + 2 * B * n_kv * K * hd * k.element_size())

@@ -239,7 +239,7 @@ def test_kernels_run_are_counted_from_the_device_records_by_wrapper():
         evt("dispatch_gather_kernel", 5, DeviceType.CPU), evt("void at::native::elementwise_kernel<...>", 99)])
     assert kernels.launches_in_trace(trace) == {
         "topk_gating": 7, "load_histogram": 7, "dispatch_gather": 0, "ssd_state_scan": 0,
-        "ssd_state_scan_bwd": 2, "moe_combine": 7, "moe_combine_bwd": 0}
+        "ssd_state_scan_bwd": 2, "moe_combine": 7, "moe_combine_bwd": 0, "attention": 0}
     assert set(kernels.DEVICE_KERNELS) == set(kernels.launch_counts())
 
 

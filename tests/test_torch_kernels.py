@@ -219,7 +219,7 @@ class TestWrappers:
         assert tk.launch_counts() == {
             "topk_gating": 0, "load_histogram": 0, "dispatch_gather": 0,
             "ssd_state_scan": 0, "ssd_state_scan_bwd": 0,
-            "moe_combine": 0, "moe_combine_bwd": 0,
+            "moe_combine": 0, "moe_combine_bwd": 0, "attention": 0,
         }
 
     def test_reset_launch_counts(self):
@@ -294,7 +294,7 @@ class TestWrappers:
     def test_sources_exist_for_every_kernel(self):
         from repro_torch.kernels import _loader
         assert [p.name for p in _loader.sources()] == [
-            "combine.cu", "dispatch.cu", "histogram.cu", "ssd_state_scan.cu", "topk_gating.cu",
+            "attention.cu", "combine.cu", "dispatch.cu", "histogram.cu", "ssd_state_scan.cu", "topk_gating.cu",
         ]
         for path in _loader.sources():
             text = path.read_text()
